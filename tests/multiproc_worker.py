@@ -2,7 +2,7 @@
 
 Each process hosts 4 fake CPU devices; together they form the 8-way mesh. The
 same shard_map kmerize program runs across both controllers, mirroring the
-multi-host TPU deployment (SURVEY.md section 4 item 4).
+multi-host deployment (SURVEY.md section 4 item 4).
 """
 
 import os

@@ -639,7 +639,6 @@ def test_kmerize_from_stdin(tmp_path, rng):
     out = tmp_path / "out.zkf"
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["ZOTPU_PLATFORM"] = "cpu"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     extra = env.get("PYTHONPATH", "")
     env["PYTHONPATH"] = (extra + os.pathsep if extra else "") + repo

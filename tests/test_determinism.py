@@ -1,4 +1,4 @@
-"""Determinism tests — the TPU-native analog of race detection (SURVEY.md §5):
+"""Determinism tests — the device analog of race detection (SURVEY.md §5):
 same input must produce bit-identical output across runs, batch sizes, and
 shard counts (shard-count invariance is covered in test_dist.py)."""
 

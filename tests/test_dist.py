@@ -330,41 +330,31 @@ def test_mixed_hash_sharded_scan_matches_golden(tmp_path):
         assert tot == int(want.sum()) and rwh == int((want > 0).sum())
 
 
-def test_merge_received_runs_interpret(rng):
-    """The receive-side streaming merge tree == lax.sort of the same buffer
-    (prefix sharding receive layout: D key-sorted runs of cap, then D runs
-    of cap2, sentinel-padded)."""
-    import jax
-    import jax.numpy as jnp
-
-    from zotpu.dist.shuffle import merge_received_runs
-    from zotpu.kernels.pack import SENT32
-    from zotpu.kernels.sort_pallas import TILE_E
-
-    D, cap, cap2 = 2, TILE_E, TILE_E
-
-    def sorted_run(n_valid, cap_r):
-        hi = rng.integers(0, 1 << 18, size=cap_r, dtype=np.uint32)
-        lo = rng.integers(0, 1 << 32, size=cap_r, dtype=np.uint32)
-        key = (hi.astype(np.uint64) << np.uint64(32)) | lo
-        key.sort()
-        key[n_valid:] = np.uint64(0xFFFFFFFFFFFFFFFF)  # sentinel padding
-        return (key >> np.uint64(32)).astype(np.uint32), key.astype(np.uint32)
-
-    parts = [sorted_run(int(rng.integers(0, cap + 1)), cap) for _ in range(D)]
-    parts += [sorted_run(int(rng.integers(0, cap2 // 4)), cap2)
-              for _ in range(D)]
-    rhi = jnp.asarray(np.concatenate([p[0] for p in parts]))
-    rlo = jnp.asarray(np.concatenate([p[1] for p in parts]))
-    # round 4: runs alternate direction per sender index (odd = descending)
-    ahi = jnp.asarray(np.concatenate(
-        [p[0] if i % 2 == 0 else p[0][::-1] for i, p in enumerate(parts)]))
-    alo = jnp.asarray(np.concatenate(
-        [p[1] if i % 2 == 0 else p[1][::-1] for i, p in enumerate(parts)]))
-    got_h, got_l = merge_received_runs(ahi, alo, D, cap, cap2, interpret=True)
-    want_h, want_l = jax.lax.sort((rhi, rlo), num_keys=2)
-    assert np.array_equal(np.asarray(got_h), np.asarray(want_h))
-    assert np.array_equal(np.asarray(got_l), np.asarray(want_l))
+@pytest.mark.parametrize("D,cf", [(2, 1.35), (4, 1.6)])
+def test_sharded_step_second_round_taken_submesh(D, cf):
+    """A sub-mesh step whose first-round buckets are too small for the
+    busiest owner (canonical keys skew toward low prefixes: ~3/4 of them
+    land on shard 0 of 2, ~7/16 on shard 0 of 4): the overflow round
+    carries the rest, and the receive side's sort of all bucket runs +
+    dedup equals golden."""
+    k = 19
+    reads_per_chip, read_len = 64, 100
+    rng = np.random.default_rng(40 + D)
+    seqs, codes, lengths = make_batch(rng, D * reads_per_chip, read_len,
+                                      alphabet="ACGT", min_len=read_len)
+    step, _ = shuffle.make_kmerize_step(M.make_mesh(D), k, reads_per_chip,
+                                        read_len, capacity_factor=cf)
+    uhi, ulo, counts, n_unique, overflow, routed = step(codes, lengths)
+    assert np.all(np.asarray(overflow) == 0)
+    cap = int(np.ceil(reads_per_chip * (read_len - k + 1) * cf / D))
+    assert int(np.asarray(routed).max()) > D * cap   # second round taken
+    keys, cnts = shuffle.gather_global(
+        np.asarray(uhi).reshape(D, -1), np.asarray(ulo).reshape(D, -1),
+        np.asarray(counts).reshape(D, -1), np.asarray(n_unique))
+    want_k, want_c = G.kmerize(k, seqs)
+    assert np.array_equal(keys, want_k)
+    assert np.array_equal(cnts, want_c)
+    assert int(np.asarray(routed).sum()) == int(want_c.sum())
 
 
 def test_mixed_owner_embedding_properties(rng):
@@ -424,27 +414,25 @@ def test_mixed_owner_embedding_fallback():
     assert not emb
 
 
-def test_mixed_embedded_receive_tree_interpret(rng):
-    """Full mixed-EMBEDDED receive path in interpret mode: owner sort ->
-    bucket layout -> strip -> merge tree == plain sorted set of the input
-    keys (the property the TPU-only use_tree branch relies on)."""
+def test_mixed_embedded_receive_path(rng):
+    """Full mixed-EMBEDDED receive path: owner sort -> bucket layout ->
+    strip -> sort of the received runs == plain sorted set of the input
+    keys."""
     import jax
     import jax.numpy as jnp
 
     from zotpu import semantics as S
     from zotpu.dist import shuffle as SH
     from zotpu.kernels.pack import SENT32
-    from zotpu.kernels.sort_pallas import TILE_E
 
     k, D = 25, 2
     p = 1
-    cap = TILE_E
+    cap = 1 << 14
     n_in = D * cap - 2048                    # >8 sigma bucket slack: no overflow
     keys = rng.integers(0, 1 << 50, size=n_in).astype(np.uint64)
     hi0, lo0 = S.split_hi_lo(keys)
-    hi = jnp.asarray(hi0)
-    lo = jnp.asarray(lo0)
-    khi, klo, owner, _, emb = SH._mixed_owner_sort(hi, lo, k, p, D)
+    khi, klo, owner, _, emb = SH._mixed_owner_sort(
+        jnp.asarray(hi0), jnp.asarray(lo0), k, p, D)
     assert emb
     # bucket layout exactly as _route builds it (single sender, D buckets)
     o = np.asarray(owner)
@@ -458,104 +446,71 @@ def test_mixed_embedded_receive_tree_interpret(rng):
         assert m <= cap
         rhi[d, :m] = np.asarray(khi)[seg]
         rlo[d, :m] = np.asarray(klo)[seg]
-    rhi[1::2] = rhi[1::2, ::-1]       # odd runs stored descending (round 4)
-    rlo[1::2] = rlo[1::2, ::-1]
     rhi = jnp.asarray(rhi.reshape(-1))
     rlo = jnp.asarray(rlo.reshape(-1))
     shi = SH._strip_owner(rhi, rlo, k, p)
-    got_h, got_l = SH.merge_received_runs(shi, rlo, D, cap, 0, interpret=True)
+    got_h, got_l = jax.lax.sort((shi, rlo), num_keys=2)
     want = np.sort(keys)
     got = S.join_hi_lo(np.asarray(got_h), np.asarray(got_l))
     assert np.array_equal(got[:n_in], want)
     assert np.all(got[n_in:] == np.uint64(0xFFFFFFFFFFFFFFFF))
 
 
-def test_merge_received_runs_fused_dedup_interpret(rng):
-    """merge_received_runs(dedup=True): the final tree pass's in-kernel
-    DENSE dedup-compact epilogue == lax.sort + dedup_count_sorted of the
-    same buffer (unique keys packed to the front with segment counts)."""
-    import jax
-    import jax.numpy as jnp
+def test_sharded_step_forced_second_round_one_device():
+    """D=1 with the overflow round forced on (what selftest runs on a
+    one-device host): gated off (everything fits round one) and taken
+    (capacity below the load), marked and compacted output, all golden."""
+    from zotpu.kernels.sortdedup import compact_sorted
 
-    from zotpu.dist.shuffle import merge_received_runs
-    from zotpu.kernels.sort_pallas import TILE_E
-    from zotpu.kernels.sortdedup import dedup_count_sorted
-
-    def sorted_run(n_valid, cap_r):
-        # tiny key space -> many duplicate keys, within and across runs
-        key = rng.integers(0, 512, size=cap_r).astype(np.uint64)
-        key.sort()
-        key[n_valid:] = np.uint64(0xFFFFFFFFFFFFFFFF)
-        return ((key >> np.uint64(32)).astype(np.uint32),
-                key.astype(np.uint32))
-
-    # (1, TILE_E, 0): single run, the epilogue rides an empty-B pair merge
-    # (the D=1 forced-second-round path when the round is gated off)
-    for D, cap, cap2 in ((2, TILE_E, 0), (2, TILE_E, TILE_E),
-                         (4, TILE_E, 0), (1, TILE_E, 0)):
-        parts = [sorted_run(int(rng.integers(cap // 2, cap + 1)), cap)
-                 for _ in range(D)]
-        if cap2:
-            parts += [sorted_run(int(rng.integers(0, cap2 // 4)), cap2)
-                      for _ in range(D)]
-        rhi = jnp.asarray(np.concatenate([p[0] for p in parts]))
-        rlo = jnp.asarray(np.concatenate([p[1] for p in parts]))
-        # alternating-direction runs per round section (round 4)
-        def _alt(ps):
-            return [(p[0], p[1]) if i % 2 == 0 else (p[0][::-1], p[1][::-1])
-                    for i, p in enumerate(ps)]
-        aparts = _alt(parts[:D]) + _alt(parts[D:])
-        ahi = jnp.asarray(np.concatenate([p[0] for p in aparts]))
-        alo = jnp.asarray(np.concatenate([p[1] for p in aparts]))
-        uhi, ulo, cnt, n = merge_received_runs(ahi, alo, D, cap, cap2,
-                                               interpret=True, dedup=True)
-        shi, slo = jax.lax.sort((rhi, rlo), num_keys=2)
-        whi, wlo, wcnt, wn = dedup_count_sorted(shi, slo)
-        n, wn = int(np.asarray(n)), int(np.asarray(wn))
-        assert n == wn, (D, cap, cap2)
-
-        def dense(h, l, c, m):
-            h, l, c = (np.asarray(x) for x in (h, l, c))
-            return ((h[:m].astype(np.uint64) << np.uint64(32)) | l[:m],
-                    c[:m])
-
-        gk, gc = dense(uhi, ulo, cnt, n)
-        wk, wc = dense(whi, wlo, wcnt, wn)
-        assert np.array_equal(gk, wk), (D, cap, cap2)
-        assert np.array_equal(gc, wc), (D, cap, cap2)
-        # sentinel keys / zero counts beyond the dense prefix
-        g = np.asarray(uhi).astype(np.uint64) << np.uint64(32) | np.asarray(ulo)
-        assert np.all(g[n:] == np.uint64(0xFFFFFFFFFFFFFFFF))
-        assert np.all(np.asarray(cnt)[n:] == 0)
+    k = 21
+    rng = np.random.default_rng(5)
+    seqs, codes, lengths = make_batch(rng, 24, 90, min_len=60)
+    want_k, want_c = G.kmerize(k, seqs)
+    mesh = M.make_mesh(1)
+    for cf in (1.05, 0.8):
+        for compact in (True, False):
+            step, _ = shuffle.make_kmerize_step(
+                mesh, k, 24, 90, capacity_factor=cf, compact=compact,
+                force_second_round=True)
+            uhi, ulo, counts, n, ovf, _ = step(codes, lengths)
+            assert int(np.asarray(ovf).sum()) == 0, (cf, compact)
+            uhi, ulo, counts = (np.asarray(x).reshape(-1)
+                                for x in (uhi, ulo, counts))
+            if not compact:
+                uhi, ulo, counts = (np.asarray(x) for x in
+                                    compact_sorted(uhi, ulo, counts))
+            nn = int(np.asarray(n)[0])
+            assert np.array_equal(S.join_hi_lo(uhi[:nn], ulo[:nn]), want_k)
+            assert np.array_equal(counts[:nn], want_c), (cf, compact)
 
 
 @pytest.mark.slow
-def test_sharded_step_fused_dedup_interpret(mesh8):
-    """The FULL sharded step with the tree + fused dedup-mark (the TPU-only
-    body path, forced on CPU via interpret=True): marked output absorbs to
-    the same global set as golden, routed comes from the senders' landed
-    counts, and the dense-step output matches byte-for-byte."""
+def test_sharded_step_marked_output(mesh8):
+    """The FULL sharded step with marked (uncompacted) output: compacting
+    each shard row yields the golden global set, and routed (from the
+    senders' landed counts) sums to the total valid k-mers."""
     k = 17
     D = 8
     reads_per_chip, read_len = 8, 70
     rng = np.random.default_rng(29)
     seqs, codes, lengths = make_batch(rng, D * reads_per_chip, read_len,
                                       min_len=read_len)
+    from zotpu.kernels.sortdedup import compact_sorted
+
     step, cap_out = shuffle.make_kmerize_step(mesh8, k, reads_per_chip,
                                               read_len, capacity_factor=6.0,
-                                              compact=False, interpret=True)
+                                              compact=False)
     uhi, ulo, counts, n_unique, overflow, routed = step(codes, lengths)
     assert np.all(np.asarray(overflow) == 0)
     uhi = np.asarray(uhi).reshape(D, -1)
     ulo = np.asarray(ulo).reshape(D, -1)
     counts = np.asarray(counts).reshape(D, -1)
-    # the fused path emits DENSE per-shard runs: n_unique counts the packed
-    # prefix, sentinel/0 beyond
+    # marked rows: n_unique counts the nonzero-count rows
     assert np.array_equal(np.asarray(n_unique),
                           (counts != 0).sum(axis=1).astype(np.int32))
-    for d in range(D):
-        nd = int(np.asarray(n_unique)[d])
-        assert np.all(uhi[d, nd:] == np.uint32(0xFFFFFFFF))
+    uhi, ulo, counts = (np.stack(x) for x in zip(*(
+        [np.asarray(a) for a in compact_sorted(uhi[d], ulo[d], counts[d])]
+        for d in range(D))))
     keys, cnts = shuffle.gather_global(uhi, ulo, counts, np.asarray(n_unique))
     want_k, want_c = G.kmerize(k, seqs)
     assert np.array_equal(keys, want_k)
@@ -713,59 +668,49 @@ def test_partition_cache_reused_across_pairs(rng):
         assert (r["intersect"], r["union"]) == (ni, nu), (i, j)
 
 
-def test_merge_received_runs_tag_interpret(rng):
-    """The PAYLOAD merge tree (round 5, sharded pulldown): (key, tag)
-    multiset of valid rows == the 3-key lax.sort of the same buffer; keys
-    fully sorted."""
-    import jax
-    import jax.numpy as jnp
-
-    from zotpu.dist.shuffle import merge_received_runs_tag
-    from zotpu.kernels.sort_pallas import TILE_E
-
-    D, cap, cap2 = 2, TILE_E, TILE_E
-
-    def sorted_run(n_valid, cap_r):
-        hi = rng.integers(0, 1 << 18, size=cap_r, dtype=np.uint32)
-        lo = rng.integers(0, 1 << 32, size=cap_r, dtype=np.uint32)
-        key = (hi.astype(np.uint64) << np.uint64(32)) | lo
-        key.sort()
-        key[n_valid:] = np.uint64(0xFFFFFFFFFFFFFFFF)
-        tag = rng.integers(0, 1 << 20, size=cap_r, dtype=np.uint32)
-        tag[n_valid:] = 0                       # padding payload
-        return ((key >> np.uint64(32)).astype(np.uint32),
-                key.astype(np.uint32), tag, n_valid)
-
-    parts = [sorted_run(int(rng.integers(0, cap + 1)), cap)
-             for _ in range(D)]
-    parts += [sorted_run(int(rng.integers(0, cap2 // 4)), cap2)
-              for _ in range(D)]
-    rhi = jnp.asarray(np.concatenate([p[0] for p in parts]))
-    rlo = jnp.asarray(np.concatenate([p[1] for p in parts]))
-    rtag = jnp.asarray(np.concatenate([p[2] for p in parts]))
-    gh, gl, gt = merge_received_runs_tag(rhi, rlo, rtag, D, cap, cap2,
-                                         interpret=True)
-    wh, wl, wt = jax.lax.sort((rhi, rlo, rtag), num_keys=2)
-    assert np.array_equal(np.asarray(gh), np.asarray(wh))
-    assert np.array_equal(np.asarray(gl), np.asarray(wl))
-    # tags: exact multiset per key among VALID rows (ties may reorder
-    # within an equal-key segment; sentinel-row payload is padding)
-    valid = int(sum(p[3] for p in parts))
-    got = np.stack([np.asarray(gh)[:valid], np.asarray(gl)[:valid],
-                    np.asarray(gt)[:valid]])
-    want = np.stack([np.asarray(wh)[:valid], np.asarray(wl)[:valid],
-                     np.asarray(wt)[:valid]])
-    got = got[:, np.lexsort(got[::-1])]
-    want = want[:, np.lexsort(want[::-1])]
+def test_pulldown_sentinel_heavy_matches_golden(mesh8):
+    """Short, N-laden reads (most windows invalid: sentinel probes that
+    route as bucket padding) through the sharded pulldown: per-read hits
+    equal golden."""
+    k = 15
+    D = 8
+    reads_per_chip, read_len = 6, 64
+    rng = np.random.default_rng(19)
+    panel_src = "".join(rng.choice(list("ACGT"), size=300))
+    panel_keys, _ = G.kmerize(k, [panel_src])
+    R = D * reads_per_chip
+    seqs = []
+    for i in range(R):
+        n = int(rng.integers(5, read_len + 1))
+        if i % 2 == 0:
+            off = int(rng.integers(0, 300 - n))
+            s = list(panel_src[off:off + n])
+            for j in rng.integers(0, n, size=max(n // 10, 1)):
+                s[j] = "N"
+            seqs.append("".join(s))
+        else:
+            seqs.append("".join(rng.choice(list("ACGTN"), size=n)))
+    codes = np.full((R, read_len), 4, np.uint8)
+    lengths = np.zeros(R, np.int32)
+    for i, s in enumerate(seqs):
+        codes[i, :len(s)] = G.encode(s)
+        lengths[i] = len(s)
+    phi, plo, cap = shuffle.partition_panel(panel_keys, k, D)
+    step = shuffle.make_pulldown_step(mesh8, k, reads_per_chip, read_len,
+                                      cap, capacity_factor=8.0)
+    row_hits, overflow = step(codes, lengths, phi, plo)
+    assert np.all(np.asarray(overflow) == 0)
+    got = np.asarray(row_hits).reshape(D, R)[0]
+    want = G.scan_panel(k, panel_keys, seqs)
+    assert want.sum() > 0
     assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("shard_hash", ["prefix", "mixed"])
-def test_pulldown_stream_join_matches_golden(mesh8, shard_hash):
-    """The round-5 streaming pulldown path (payload merge tree + merge-path
-    join, interpret=True on CPU) must match golden per-read hits exactly --
-    and the portable _join_xla path, which the same call WITHOUT interpret
-    takes on CPU."""
+def test_pulldown_sharded_matches_golden(mesh8, shard_hash):
+    """The sharded pulldown step (route with read-row ids, per-shard 3-key
+    join, psum'd hits) matches golden per-read hits exactly, for both
+    owner functions."""
     k = 21
     D = 8
     reads_per_chip, read_len = 8, 90
@@ -788,15 +733,9 @@ def test_pulldown_stream_join_matches_golden(mesh8, shard_hash):
                                             shard_hash=shard_hash)
     step = shuffle.make_pulldown_step(mesh8, k, reads_per_chip, read_len,
                                       cap, capacity_factor=8.0,
-                                      shard_hash=shard_hash, interpret=True)
+                                      shard_hash=shard_hash)
     row_hits, overflow = step(codes, lengths, phi, plo)
     assert np.all(np.asarray(overflow) == 0)
     row_hits = np.asarray(row_hits).reshape(D, R)[0]
     want_rows = G.scan_panel(k, panel_keys, seqs)
     assert np.array_equal(row_hits, want_rows)
-
-    old = shuffle.make_pulldown_step(mesh8, k, reads_per_chip, read_len,
-                                     cap, capacity_factor=8.0,
-                                     shard_hash=shard_hash)
-    old_hits, _ = old(codes, lengths, phi, plo)
-    assert np.array_equal(np.asarray(old_hits).reshape(D, R)[0], want_rows)

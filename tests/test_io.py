@@ -350,7 +350,6 @@ def test_chunked_parse_equivalence(tmp_path, monkeypatch, rng):
                         b.bases, b.record_ids.copy()))
         return out
 
-    monkeypatch.setenv("ZOTPU_PALLAS", "0")
     for path in (fq, fa):
         want = collect(path)
         for chunk in (17, 256, 4096):

@@ -1,6 +1,5 @@
 """Sort-merge membership join vs a numpy membership oracle and golden."""
 
-import jax
 import numpy as np
 import pytest
 
@@ -48,9 +47,23 @@ def test_row_hits_join_matches_golden(k, n_reads, read_len):
     assert np.array_equal(got, oracle.sum(axis=1).astype(np.int32))
 
 
-def test_join_pallas_interpret_matches_xla():
+def _star_rows(phi, plo, qhi, qlo, n_rows, m_per_row):
+    """Per-row hits through the key*-transformed XLA join + backward sort,
+    plus the bkey stream itself."""
+    import jax.numpy as jnp
+    phi_s, plo_s = J._transform_keys(jnp.asarray(phi), jnp.asarray(plo),
+                                     is_probe=False)
+    qhi_s, qlo_s = J._transform_keys(jnp.asarray(qhi), jnp.asarray(qlo),
+                                     is_probe=True)
+    tag = jnp.repeat(jnp.arange(n_rows, dtype=jnp.uint32), m_per_row)
+    bkey = J._join_xla_star(phi_s, plo_s, qhi_s, qlo_s, tag, n_rows)
+    rows = np.asarray(J._rowsum_by_idx(bkey, n_rows, m_per_row))
+    return rows, np.asarray(bkey)
+
+
+def test_join_xla_matches_membership_oracle():
     rng = np.random.default_rng(3)
-    n_rows, m_per_row = 64, 512  # 32768 = TILE_E boundary
+    n_rows, m_per_row = 64, 512
     panel_keys = np.unique(rng.integers(0, 1 << 40, 5000).astype(np.uint64))
     phi, plo = _panel(panel_keys, 8192)
     m = n_rows * m_per_row
@@ -58,41 +71,22 @@ def test_join_pallas_interpret_matches_xla():
     # force overlap
     qk[::7] = panel_keys[rng.integers(0, len(panel_keys), len(qk[::7]))]
     qhi, qlo = S.split_hi_lo(qk)
-    import jax.numpy as jnp
-    phi_s, plo_s = J._transform_keys(jnp.asarray(phi), jnp.asarray(plo),
-                                     is_probe=False)
-    qhi_s, qlo_s = J._transform_keys(jnp.asarray(qhi), jnp.asarray(qlo),
-                                     is_probe=True)
-    tag = jnp.repeat(jnp.arange(n_rows, dtype=jnp.uint32), m_per_row)
-    shi, slo, stag = jax.lax.sort((qhi_s, qlo_s, tag), num_keys=2)
-    bkey_p, hit_tags, tile_hits = J._join_pallas_star(
-        phi_s, plo_s, shi, slo, stag, n_rows, interpret=True)
-    bkey_x = J._join_xla_star(phi_s, plo_s, qhi_s, qlo_s, tag, n_rows)
-    rows_p = np.asarray(J._rowsum_by_idx(bkey_p, n_rows, m_per_row))
-    rows_x = np.asarray(J._rowsum_by_idx(bkey_x, n_rows, m_per_row))
-    assert np.array_equal(rows_p, rows_x)
+    rows_x, _ = _star_rows(phi, plo, qhi, qlo, n_rows, m_per_row)
     want = np.isin(qk, panel_keys)
     want_rows = want.reshape(n_rows, m_per_row).sum(axis=1).astype(np.int32)
     assert np.array_equal(rows_x, want_rows)
-    # the compacted hit-tag epilogue agrees (~14% hit rate fits the per-tile
-    # capacity, so no tile truncates and the sparse path is exact)
-    from zotpu.kernels.sort_pallas import HIT_CAP
-    assert int(np.asarray(tile_hits).max()) <= HIT_CAP
-    assert int(np.asarray(tile_hits).sum()) == int(want_rows.sum())
-    rows_h = np.asarray(J._rowsum_from_hit_tags(hit_tags, n_rows))
-    assert np.array_equal(rows_h, want_rows)
+    # the public entry point agrees
+    rows = np.asarray(J.row_hits_sorted_join(phi, plo, qhi, qlo, n_rows,
+                                             m_per_row))
+    assert np.array_equal(rows, want_rows)
 
 
-def test_join_pallas_sentinel_probes_across_tiles():
-    """Regression: sentinel-KEY probes (invalid pack windows) carry real
-    row tags; with a 2-key merge network they tie with sentinel-masked
-    window slack and the kernel emitted slack rows in their place,
-    duplicating some tags and losing others (observed 40% idx-coverage loss
-    when tags were probe indices). The 3-key network (tag in the
-    comparator) makes ties identical-row-only."""
-    import jax.numpy as jnp
+def test_join_sentinel_probes():
+    """Sentinel-KEY probes (invalid pack windows) carry real row tags: every
+    probe ROW must still appear exactly m_per_row times in the backward-sort
+    stream, and sentinel probes never count as hits."""
     rng = np.random.default_rng(11)
-    n_rows, m_per_row = 128, 512          # m = 65536 = 2 tiles
+    n_rows, m_per_row = 128, 512
     m = n_rows * m_per_row
     panel_keys = np.unique(rng.integers(0, 1 << 40, 9000).astype(np.uint64))
     phi, plo = _panel(panel_keys, 16384)
@@ -102,22 +96,13 @@ def test_join_pallas_sentinel_probes_across_tiles():
     qhi, qlo = S.split_hi_lo(qk)
     qhi[sent] = 0xFFFFFFFF
     qlo[sent] = 0xFFFFFFFF
-    phi_s, plo_s = J._transform_keys(jnp.asarray(phi), jnp.asarray(plo),
-                                     is_probe=False)
-    qhi_s, qlo_s = J._transform_keys(jnp.asarray(qhi), jnp.asarray(qlo),
-                                     is_probe=True)
-    tag = jnp.repeat(jnp.arange(n_rows, dtype=jnp.uint32), m_per_row)
-    shi, slo, stag = jax.lax.sort((qhi_s, qlo_s, tag), num_keys=2)
-    bkey_p, _, _ = J._join_pallas_star(phi_s, plo_s, shi, slo, stag, n_rows,
-                                       interpret=True)
-    # every probe ROW must appear EXACTLY m_per_row times in the stream
-    bk = np.asarray(bkey_p) >> 1
+    rows, bkey = _star_rows(phi, plo, qhi, qlo, n_rows, m_per_row)
+    bk = bkey >> 1
     counts = np.bincount(bk[bk < n_rows], minlength=n_rows)
     assert np.array_equal(counts, np.full(n_rows, m_per_row))
-    rows_p = np.asarray(J._rowsum_by_idx(bkey_p, n_rows, m_per_row))
     want = ((np.isin(qk, panel_keys) & ~sent)
             .reshape(n_rows, m_per_row).sum(axis=1).astype(np.int32))
-    assert np.array_equal(rows_p, want)
+    assert np.array_equal(rows, want)
 
 
 @pytest.mark.parametrize("n_rows", [1000, 40_000])  # u16 path / u32 path
@@ -154,14 +139,9 @@ def test_join_duplicate_queries_same_key():
     assert rows[0] == 5
 
 
-def test_join_hit_compaction_truncation_fallback():
-    """DENSE hits (every query in the panel) overflow the per-tile hit-tag
-    capacity: tile_hits must report it so row_hits_sorted_join's cond takes
-    the bkey fallback -- and the fallback stays exact."""
-    import jax.numpy as jnp
-
-    from zotpu.kernels.sort_pallas import HIT_CAP
-
+def test_join_every_probe_hits():
+    """DENSE hits (every query in the panel): each row counts all of its
+    windows."""
     rng = np.random.default_rng(17)
     n_rows, m_per_row = 64, 512
     m = n_rows * m_per_row
@@ -169,61 +149,49 @@ def test_join_hit_compaction_truncation_fallback():
     phi, plo = _panel(panel_keys, 65536)
     qk = panel_keys[rng.integers(0, len(panel_keys), m)]  # 100% hit rate
     qhi, qlo = S.split_hi_lo(qk)
-    phi_s, plo_s = J._transform_keys(jnp.asarray(phi), jnp.asarray(plo),
-                                     is_probe=False)
-    qhi_s, qlo_s = J._transform_keys(jnp.asarray(qhi), jnp.asarray(qlo),
-                                     is_probe=True)
-    tag = jnp.repeat(jnp.arange(n_rows, dtype=jnp.uint32), m_per_row)
-    shi, slo, stag = jax.lax.sort((qhi_s, qlo_s, tag), num_keys=2,
-                                  is_stable=True)
-    bkey, hit_tags, tile_hits = J._join_pallas_star(
-        phi_s, plo_s, shi, slo, stag, n_rows, interpret=True)
-    assert int(np.asarray(tile_hits).max()) > HIT_CAP  # truncated
-    rows = np.asarray(J._rowsum_by_idx(bkey, n_rows, m_per_row))
+    rows, _ = _star_rows(phi, plo, qhi, qlo, n_rows, m_per_row)
     assert np.array_equal(rows, np.full(n_rows, m_per_row, np.int32))
 
 
-def test_rowsum_from_hit_tags_paths():
-    """Sparse-path aggregation: u16 and i32 tag dtypes, padding excluded."""
+def test_hits_from_merged_tag_contract():
+    """The sharded pulldown's 3-key join (_join_xla + _hits_from_merged):
+    panel rows carry tag 0, queries tag row+1; a query hits iff its key is
+    in the panel -- for small and large row-id ranges alike."""
     import jax.numpy as jnp
 
     for n_rows in (100, 70_000):
         rng = np.random.default_rng(n_rows)
-        tags = rng.integers(0, n_rows, 5000).astype(np.uint32)
-        padded = np.concatenate([tags, np.full(777, n_rows, np.uint32)])
-        rng.shuffle(padded)
-        got = np.asarray(J._rowsum_from_hit_tags(jnp.asarray(padded), n_rows))
-        want = np.bincount(tags, minlength=n_rows).astype(np.int32)
-        assert np.array_equal(got, want)
+        panel_keys = np.unique(rng.integers(0, 1 << 40, 3000)
+                               .astype(np.uint64))
+        phi, plo = _panel(panel_keys, 4096)
+        qk = rng.integers(0, 1 << 40, 5000).astype(np.uint64)
+        qk[::3] = panel_keys[rng.integers(0, len(panel_keys), len(qk[::3]))]
+        qk[::11] = np.uint64(0xFFFFFFFFFFFFFFFF)      # sentinel probes
+        qtag = rng.integers(1, n_rows + 1, len(qk)).astype(np.uint32)
+        qhi, qlo = S.split_hi_lo(qk)
+        hit, tag = J._join_xla(jnp.asarray(phi), jnp.asarray(plo),
+                               jnp.asarray(qhi), jnp.asarray(qlo),
+                               jnp.asarray(qtag))
+        hit, tag = np.asarray(hit), np.asarray(tag)
+        got = np.bincount(tag[hit], minlength=n_rows + 1)
+        is_hit = np.isin(qk, panel_keys)
+        want = np.bincount(qtag[is_hit], minlength=n_rows + 1)
+        assert np.array_equal(got, want), n_rows
+        assert not np.any(hit & (tag == 0))            # panel rows never hit
 
 
-def test_join_pallas_tile_rounded_non_pow2():
-    """Panel and probe sides pad to TILE_E MULTIPLES (not pow2): a 3-tile
-    probe side with a 49152-cap panel must stay exact (interpret mode)."""
-    import jax.numpy as jnp
-
+def test_join_non_pow2_panel():
+    """A panel padded to a non-power-of-two capacity (49152) against 96
+    rows x 1024 windows stays exact."""
     rng = np.random.default_rng(23)
-    n_rows, m_per_row = 96, 1024        # 98304 probes = 3 tiles
+    n_rows, m_per_row = 96, 1024
     m = n_rows * m_per_row
     panel_keys = np.unique(rng.integers(0, 1 << 44, 40000).astype(np.uint64))
     phi, plo = _panel(panel_keys, 49152)
     qk = rng.integers(0, 1 << 44, m).astype(np.uint64)
     qk[::9] = panel_keys[rng.integers(0, len(panel_keys), len(qk[::9]))]
     qhi, qlo = S.split_hi_lo(qk)
-    phi_s, plo_s = J._transform_keys(jnp.asarray(phi), jnp.asarray(plo),
-                                     is_probe=False)
-    qhi_s, qlo_s = J._transform_keys(jnp.asarray(qhi), jnp.asarray(qlo),
-                                     is_probe=True)
-    tag = jnp.repeat(jnp.arange(n_rows, dtype=jnp.uint32), m_per_row)
-    shi, slo, stag = jax.lax.sort((qhi_s, qlo_s, tag), num_keys=2,
-                                  is_stable=True)
-    bkey, hit_tags, tile_hits = J._join_pallas_star(
-        phi_s, plo_s, shi, slo, stag, n_rows, interpret=True)
     want = np.isin(qk, panel_keys).reshape(n_rows, m_per_row).sum(
         axis=1).astype(np.int32)
-    rows = np.asarray(J._rowsum_by_idx(bkey, n_rows, m_per_row))
+    rows, _ = _star_rows(phi, plo, qhi, qlo, n_rows, m_per_row)
     assert np.array_equal(rows, want)
-    from zotpu.kernels.sort_pallas import HIT_CAP
-    if int(np.asarray(tile_hits).max()) <= HIT_CAP:
-        rows_h = np.asarray(J._rowsum_from_hit_tags(hit_tags, n_rows))
-        assert np.array_equal(rows_h, want)

@@ -2,7 +2,7 @@
 
 Spawns 2 subprocesses (4 fake devices each -> 8-way mesh) running
 multiproc_worker.py, then byte-compares the combined shard outputs against the
-golden reference — the closest single-box stand-in for a 2-host TPU run.
+golden reference — the closest single-box stand-in for a 2-host run.
 """
 
 import os
@@ -46,7 +46,6 @@ def test_two_process_kmerize_cli(tmp_path):
     out = tmp_path / "out.zkf"
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["ZOTPU_PLATFORM"] = "cpu"   # wins over site-forced accelerator backends
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     extra = env.get("PYTHONPATH", "")
@@ -153,7 +152,6 @@ def test_two_process_scan_cli(tmp_path):
     port = _free_port()
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["ZOTPU_PLATFORM"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     extra = env.get("PYTHONPATH", "")
@@ -242,7 +240,6 @@ def test_two_process_stream_union_cli(tmp_path):
     out = tmp_path / "u.zkf"
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["ZOTPU_PLATFORM"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     extra = env.get("PYTHONPATH", "")

@@ -1,3 +1,3 @@
-"""zotpu: a TPU-native k-mer workbench (capabilities of drtconway/zotmer)."""
+"""zotpu: a JAX k-mer workbench for accelerators (capabilities of drtconway/zotmer)."""
 
 __version__ = "0.1.0"

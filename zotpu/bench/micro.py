@@ -1,6 +1,6 @@
 """Micro-benchmarks dissecting the kmerize step: pack vs sort vs dedup.
 
-Run on the target device to decide where Pallas effort goes:
+Run on the target device to decide where kernel effort goes:
     python -m zotpu.bench.micro [n_log2]
 """
 

@@ -181,12 +181,8 @@ def cmd_merge(args):
                 hi32, lo32 = S.split_hi_lo(kc)
                 if cc is None:
                     cc = np.ones(len(kc), np.uint32)
-                # container chunks are DENSE sorted-unique prefixes: flag
-                # them so level merges stream through the fused Pallas
-                # merge instead of the sort-based set_op (round 3's design)
                 acc.add(jnp.asarray(hi32), jnp.asarray(lo32),
-                        jnp.asarray(cc.astype(np.uint32)), len(kc),
-                        dense=True)
+                        jnp.asarray(cc.astype(np.uint32)), len(kc))
         if acc is None:
             keys = np.empty(0, np.uint64)
             counts = np.empty(0, S.COUNT_DTYPE)
@@ -739,8 +735,8 @@ def cmd_casket(args):
 
 def cmd_selftest(args):
     """On-device self-test: the five BASELINE configs byte-compared against
-    golden on the selected backend (the pre-bench gate on real TPU;
-    SURVEY.md section 4 item 6 / VERDICT round 2 item 6)."""
+    golden on the selected backend (the pre-bench gate; SURVEY.md section 4
+    item 6)."""
     from zotpu.selftest import run_selftest
     return run_selftest(k=args.k)
 
@@ -992,7 +988,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("bench", help="performance harness")
     sp.add_argument("--workload", default="kmerize",
-                    choices=["kmerize", "setops", "setops-sort", "scan",
+                    choices=["kmerize", "setops", "scan",
                              "scan-shard-model", "setops-shard-model",
                              "scaling", "shard-model", "shard-sensitivity",
                              "sustained", "parse", "e2e", "all"])

@@ -2,9 +2,10 @@
 
 Reference analog: none -- zotmer is single-process (SURVEY.md section 1); this
 layer is new design required by BASELINE. One 1-D mesh axis ``shards`` spans
-all chips (hosts x chips_per_host); the k-mer key space is partitioned across
-it by key prefix (semantics.shard_of_u64). XLA maps the all-to-all onto ICI
-within a slice and DCN across hosts; no NCCL/MPI anywhere.
+all devices (hosts x devices_per_host); the k-mer key space is partitioned
+across it by key prefix (semantics.shard_of_u64). Every device reaches every
+other at the same rate on an NVLink host, so the mesh follows the algorithm
+alone; on GPUs XLA hands the all-to-all and psum collectives to NCCL.
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
                      process_id: int | None = None) -> None:
     """Multi-host bring-up via jax.distributed (no-op single process).
 
-    On a real pod slice each host calls this before building the mesh; the
-    same shard_map program then spans every chip in the slice.
+    Each host calls this before building the mesh; the same shard_map
+    program then spans every device of every host.
     """
     if num_processes and num_processes > 1:
         jax.distributed.initialize(coordinator_address=coordinator,

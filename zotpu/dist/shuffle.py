@@ -8,11 +8,11 @@ Reference analog: none -- this is the scale-out layer BASELINE requires
   (key-prefix sharding, NOT mixed-hash: concatenated per-shard sorted runs are
   then already globally sorted, and single-chip output is shard-count
   invariant).
-- Every chip packs its local read slice (fused pack kernel), sorts it --
+- Every chip packs its local read slice (kernels/pack), sorts it --
   because the owner is a key prefix, sorting by key also groups by owner --
-  and scatters entries into fixed-capacity per-destination buckets.
-- ``lax.all_to_all`` routes the buckets (XLA lowers onto ICI/DCN); receivers
-  sort + dedup their shard into a sorted (key, count) run.
+  and places entries into fixed-capacity per-destination buckets.
+- ``lax.all_to_all`` routes the buckets (on GPUs XLA hands the collective to
+  NCCL); receivers sort + dedup their shard into a sorted (key, count) run.
 - Variable per-destination volume is handled with static capacity + overflow
   counters (psum'd for monitoring); capacity_factor sizes the slack
   (SURVEY.md section 7 "hard parts": GC-content skew can exceed 2x -- monitor
@@ -30,8 +30,7 @@ from jax import shard_map
 
 from zotpu import semantics as S
 from zotpu.dist.mesh import AXIS, shard_bits
-from zotpu.kernels.pack import SENT32
-from zotpu.kernels.dispatch import pack_canonical
+from zotpu.kernels.pack import SENT32, pack_canonical
 from zotpu.kernels.sortdedup import dedup_count_sorted, dedup_mark_sorted
 
 
@@ -56,15 +55,13 @@ def _mixed_owner_sort(hi, lo, k: int, p_bits: int, n_shards: int, payload=()):
     high bits of ``hi`` so ONE two-word lexicographic sort both groups rows
     by owner and key-sorts them within each owner -- the same operand count
     as prefix sharding (the naive form pays a third full-width sort channel
-    for the mix), and the property the receive-side merge tree needs: every
-    bucket is a key-sorted run. Returns (khi, lo, owner, *payload) with the
-    owner still embedded in khi; strip with ``_strip_owner`` after routing.
+    for the mix), and every bucket is a key-sorted run. Returns (khi, lo,
+    owner, payload, embedded) with the owner still embedded in khi; strip
+    with ``_strip_owner`` after routing.
 
     Falls back to the separate-mix-channel sort when the owner bits do not
-    fit (large k x many shards); then buckets are key-sorted too (the mix is
-    sorted only as grouping prefix -- key order breaks ties within an owner
-    ONLY if the mix is constant within the bucket, which it is NOT in the
-    fallback, hence the fallback returns tree_ok=False).
+    fit (large k x many shards); its buckets are ordered by mix, not key,
+    and it returns embedded=False.
     """
     sent = (hi == SENT32) & (lo == SENT32)
     mix = S.routing_mix32(hi, lo)
@@ -117,7 +114,7 @@ def _owner_of(hi, lo, k: int, p: int, n_shards: int):
 
 
 def _route(hi, lo, k: int, n_shards: int, capacity: int, payload=(),
-           capacity2: int = 0, owner=None, reverse_odd: bool = False):
+           capacity2: int = 0, owner=None):
     """Owner-route sorted-by-key entries into (D, C) buckets + all_to_all.
 
     Returns received (hi, lo, *payload) flattened to (D*(C+C2),) plus the
@@ -146,12 +143,6 @@ def _route(hi, lo, k: int, n_shards: int, capacity: int, payload=(),
     destination's buckets -- psum it to get per-shard received volumes
     without scanning the received buffer (the routing-skew stat).
 
-    ``reverse_odd=True`` (round 4, tree receivers only): senders with an
-    ODD shard index emit every bucket REVERSED (one fused select on the
-    send buffer), so received runs alternate direction -- even ascending,
-    odd descending -- the storage convention the compact streaming merge
-    tree consumes (kernels/sort_pallas.tree_merge_pass_alt: an
-    [asc | desc] pair is bitonic with no padding or in-kernel flip).
     """
     p = shard_bits(n_shards)
     m = hi.shape[0]
@@ -161,24 +152,17 @@ def _route(hi, lo, k: int, n_shards: int, capacity: int, payload=(),
     # owner is non-decreasing (key prefix on sorted keys; sentinels clamp to
     # the last shard), so bucket d's rows are the CONTIGUOUS input slice
     # [starts[d], starts[d+1]). Bucket fill is therefore D static-size
-    # dynamic slices + a live mask instead of a scatter. (Measured via
-    # `bench --workload shard-model`: the two formulations cost about the
-    # same here -- XLA handles this monotonic scatter well -- but the slice
-    # form guarantees it stays off the 0.13 Gelem/s general-scatter path
-    # and reads as what it is: segment placement.)
+    # dynamic slices + a live mask instead of a scatter: segment placement.
     # PRACTICAL D BOUND: the fill unrolls n_shards dynamic slices per
-    # channel, so program size grows O(D) -- fine through D <= 256 (a v5e
-    # pod slice), a compile-size trap toward the D = 8192 the owner
-    # embedding could address. Past ~256 shards, batch the fill as one
-    # lax.map over a stacked starts vector before reaching for bigger
-    # meshes (VERDICT round 2 weak item 7).
+    # channel, so program size grows O(D) -- fine through D <= 256, a
+    # compile-size trap toward the D = 8192 the owner embedding could
+    # address. Past ~256 shards, batch the fill as one lax.map over a
+    # stacked starts vector.
     starts = jnp.searchsorted(owner, jnp.arange(n_shards, dtype=jnp.int32)
                               ).astype(jnp.int32)
     sizes = jnp.diff(jnp.concatenate([starts,
                                       jnp.array([m], jnp.int32)]))
     pos = jnp.arange(m, dtype=jnp.int32) - starts[owner]
-    odd_sender = ((jax.lax.axis_index(AXIS) % 2) == 1 if reverse_odd
-                  else None)
 
     def round_bufs(offset: int, cap_r: int):
         pos_r = pos - offset
@@ -195,12 +179,7 @@ def _route(hi, lo, k: int, n_shards: int, capacity: int, payload=(),
             # owner); in-bucket sentinel rows are already SENT32 for hi/lo,
             # and payload channels of sentinel rows are ignored downstream
             # (the join requires a valid key).
-            buf = jnp.where(live, buf, fillv)
-            if odd_sender is not None:
-                # odd senders ship DESCENDING buckets (sentinel pad at the
-                # head) -- the receive tree's alternating-run convention
-                buf = jnp.where(odd_sender, buf[:, ::-1], buf)
-            return buf
+            return jnp.where(live, buf, fillv)
 
         send = [fill(hi, SENT32), fill(lo, SENT32)]
         send += [fill(x, jnp.zeros((), x.dtype)) for x in payload]
@@ -240,152 +219,10 @@ def _route(hi, lo, k: int, n_shards: int, capacity: int, payload=(),
     return recv, overflow, need2, landed
 
 
-def merge_received_runs_tag(rhi, rlo, rtag, n_shards: int, cap: int,
-                            cap2: int, interpret: bool = False):
-    """Receive-side merge tree WITH a u32 payload channel (round 5).
-
-    Same run layout as ``merge_received_runs`` but every run is ASCENDING
-    (the payload tree rides the round-2 streaming engine,
-    kernels/sort_pallas.stream_merge_pass_pallas, whose payload channels
-    are proven on the set-op and join paths; callers route with
-    ``reverse_odd=False``). Used by the sharded pulldown: the routed probe
-    k-mers carry their global read-row id, and merging the D received runs
-    costs log2(D) streaming passes instead of the 3-key full re-sort the
-    round-4 pulldown paid (~160 ms at 31M rows -- the sharded scan's
-    dominant term after the owner sort, docs/PERF_NOTES.md round 5).
-
-    2-key network note: received sentinel-KEY rows are bucket PADDING
-    whose payload is never consumed (a hit needs a valid key), so the
-    slack-tie hazard stream_merge_pair_pallas's num_keys=3 exists for
-    does not apply -- valid keys never tie window slack, and the (key,
-    payload) multiset of valid rows is exact.
-
-    Returns (hi, lo, tag) fully ascending-sorted by key.
-    """
-    from zotpu.kernels import sort_pallas as SP
-
-    h1 = rhi[:n_shards * cap]
-    l1 = rlo[:n_shards * cap]
-    t1 = rtag[:n_shards * cap]
-    run = cap
-    while run < n_shards * cap:
-        h1, l1, t1 = SP.stream_merge_pass_pallas(h1, l1, (t1,), run,
-                                                 interpret=interpret)
-        run *= 2
-    if cap2 == 0:
-        return h1, l1, t1
-    h2 = rhi[n_shards * cap:]
-    l2 = rlo[n_shards * cap:]
-    t2 = rtag[n_shards * cap:]
-    run = cap2
-    while run < n_shards * cap2:
-        h2, l2, t2 = SP.stream_merge_pass_pallas(h2, l2, (t2,), run,
-                                                 interpret=interpret)
-        run *= 2
-    h = jnp.concatenate([h1, h2])
-    l = jnp.concatenate([l1, l2])
-    t = jnp.concatenate([t1, t2])
-    h, l, t = SP.stream_merge_pair_pallas(h, l, (t,), nA=n_shards * cap,
-                                          interpret=interpret)
-    return h, l, t
-
-
-def merge_received_runs(rhi, rlo, n_shards: int, cap: int, cap2: int,
-                        interpret: bool = False, dedup: bool = False):
-    """Receive-side sort for PREFIX sharding: a streaming merge tree.
-
-    The received buffer is [n_shards runs of cap | n_shards runs of cap2],
-    each run key-sorted with ALTERNATING direction (round 4): even-indexed
-    runs ascending, odd-indexed runs DESCENDING -- the senders' fill emits
-    odd shards' buckets reversed (_route reverse_odd=True), so every merge
-    level consumes [asc | desc] pairs through the COMPACT streaming kernel
-    (kernels/sort_pallas.tree_merge_pass_alt: a T-length bitonic buffer
-    with no padded slack or in-kernel flip -- 15 network stages over half
-    the rows of the round-2/3 padded-2T form, double-buffered DMAs) and
-    re-establishes the convention by emitting odd output pairs descending.
-    A full ``lax.sort`` re-sort costs ~0.22 Gkeys/s on TPU; the tree costs
-    log2(n_shards) streaming passes. Requires cap, cap2 multiples of
-    TILE_E and n_shards a power of two (make_kmerize_step rounds
-    capacities up when it selects this path). Valid whenever buckets are
-    key-sorted runs: always for prefix sharding, and for mixed sharding in
-    its owner-EMBEDDED form (_mixed_owner_sort with owner bits stripped
-    before this call); NOT for the separate-mix-channel fallback, whose
-    buckets are mix-ordered.
-
-    ``dedup=True`` fuses a DENSE dedup-compact epilogue into the tree's
-    FINAL pass (kernels/dedup_pallas.merged_dedup_compact_{pass,pair}) and
-    returns (uhi, ulo, counts, n_unique) with the unique keys packed to the
-    front -- both the separate XLA dedup pass AND the sort the level-0
-    accumulator merge needed for marked runs disappear (round 3: dense runs
-    flow through the streaming fused merge kernel at every LSM level; the
-    marked form's interspersed sentinels made runs unsorted, forcing
-    4-operand set_op re-sorts that dominated sustained per-batch cost --
-    measured 450 ms/batch vs the 152 ms step, docs/PERF_NOTES.md). Output
-    arrays are kernels/dedup_pallas.dedup_out_cap(n_shards*(cap+cap2))
-    long (input + append slack).
-    """
-    from zotpu.kernels import dedup_pallas as DP
-    from zotpu.kernels import sort_pallas as SP
-
-    h1, l1 = rhi[:n_shards * cap], rlo[:n_shards * cap]
-    run = cap
-    if dedup and cap2 == 0 and n_shards == 1:
-        # one run, nothing to merge (D=1 with the forced second round gated
-        # off): the dedup epilogue still has to run -- a pair pass against
-        # an EMPTY B side is the identity merge + epilogue
-        return DP.merged_dedup_compact_pair(h1, l1, nA=cap,
-                                            interpret=interpret)
-    while run < n_shards * cap:
-        final = dedup and cap2 == 0 and run * 2 >= n_shards * cap
-        if final:
-            return DP.merged_dedup_compact_pass(h1, l1, run,
-                                                interpret=interpret)
-        h1, l1 = SP.tree_merge_pass_alt(h1, l1, run, interpret=interpret)
-        run *= 2
-    if cap2 == 0:
-        return h1, l1
-    h2, l2 = rhi[n_shards * cap:], rlo[n_shards * cap:]
-    if n_shards == 1:
-        # the single second-round bucket arrives ascending (sender 0 is
-        # even); reverse it into the final pair's DESCENDING B side
-        h2, l2 = h2[::-1], l2[::-1]
-    run = cap2
-    while run < n_shards * cap2:
-        # the subtree's LAST pass flips parity so its single merged run
-        # comes out DESCENDING -- ready to be the final pair's B side
-        last = run * 2 >= n_shards * cap2
-        h2, l2 = SP.tree_merge_pass_alt(h2, l2, run,
-                                        parity=1 if last else 0,
-                                        interpret=interpret)
-        run *= 2
-    h = jnp.concatenate([h1, h2])
-    l = jnp.concatenate([l1, l2])
-    if dedup:
-        return DP.merged_dedup_compact_pair(h, l, nA=n_shards * cap,
-                                            interpret=interpret)
-    return SP.tree_merge_pair_alt(h, l, nA=n_shards * cap,
-                                  interpret=interpret)
-
-
-def step_emits_dense(k: int, n_shards: int, shard_hash: str = "prefix",
-                     interpret: bool = False,
-                     force_second_round: bool = False) -> bool:
-    """True when make_kmerize_step (same flags) takes the tree + fused
-    DENSE dedup path, i.e. its per-shard runs are dense unique prefixes --
-    the accumulator can then use the streaming fused merge at every level
-    instead of a re-sort. Must mirror make_kmerize_step's use_tree logic."""
-    from zotpu.kernels.dispatch import use_pallas
-    tree_order_ok = (shard_hash == "prefix"
-                     or _embed_bits(k, shard_bits(n_shards)) is not None)
-    return (tree_order_ok and (n_shards > 1 or force_second_round)
-            and (n_shards & (n_shards - 1)) == 0
-            and (use_pallas() or interpret))
-
-
 def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
                       capacity_factor: float = 2.0, compact: bool = True,
                       second_round: bool = True, wire: bool = False,
-                      shard_hash: str = "prefix", interpret: bool = False,
+                      shard_hash: str = "prefix",
                       force_second_round: bool = False,
                       _bench_no_dedup: bool = False):
     """Build the jitted multi-chip kmerize step.
@@ -411,23 +248,19 @@ def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
     shards regardless of GC-content skew. The owner id is EMBEDDED in the
     key's spare high bits whenever it fits (max(2k-32,0) + log2(D) <= 31,
     e.g. k=25 up to 8192 shards), so the sender pays the SAME two-operand
-    sort as prefix sharding and the receive side keeps the streaming merge
-    tree; otherwise it falls back to a third full-width mix sort channel +
-    a receive-side lax.sort. Either way the only remaining mixed-mode cost
-    is a final host-side reorder after gathering (per-shard runs are each
+    sort as prefix sharding; otherwise it falls back to a third full-width
+    mix sort channel. Either way the only remaining mixed-mode cost is a
+    final host-side reorder after gathering (per-shard runs are each
     key-sorted, but shard key ranges interleave). A key still maps to
     exactly ONE shard, so duplicates always meet and output bytes are
     identical (SURVEY.md section 7 "hard parts": measure both).
 
-    ``force_second_round=True`` enables the overflow round even at D=1 (with
-    the tree/fused-dedup receive path), so one chip can MEASURE the
-    skew-path cost: pick a capacity_factor < 1 and the spill into the second
-    round is exercised on real silicon (bench --workload shard-model).
+    ``force_second_round=True`` enables the overflow round even at D=1, so
+    one device can exercise and measure the skew path: pick a
+    capacity_factor < 1 and entries spill into the second round.
     ``_bench_no_dedup=True`` is bench-only: it skips the dedup stage so the
-    D=1 step isolates pack+sort+fill+route (at D >= 2 dedup rides the
-    receive tree's last pass, so the honest per-chip model composes this
-    no-dedup term with the fused-dedup tree term); its outputs are NOT a
-    valid k-mer set.
+    D=1 step isolates pack+sort+fill+route; its outputs are NOT a valid
+    k-mer set.
     """
     S.check_k(k)
     D = mesh.devices.size
@@ -435,32 +268,7 @@ def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
     cap = int(np.ceil(m_local * capacity_factor / D))
     cap2 = ((cap + 3) // 4
             if (second_round and D > 1) or force_second_round else 0)
-    # receive-side sort strategy: the received buffer is D key-sorted runs
-    # -- always true for prefix sharding (a bucket is a contiguous slice of
-    # the sender's key-sorted array), and true for mixed sharding when the
-    # owner id is EMBEDDED in the key's spare high bits (_mixed_owner_sort:
-    # one 2-word sort groups by owner AND key-orders within it) -- so merge
-    # them (merge_received_runs) instead of a full lax.sort. The streaming
-    # kernel needs TILE_E-aligned runs and a power-of-two D; round
-    # capacities up (capacity only moves the overflow threshold -- output
-    # bytes are capacity-invariant, tested). interpret=True (tests) forces
-    # the tree path on CPU through the Pallas interpreter, so the TPU-only
-    # fused-dedup body compiles and runs in CI.
-    use_tree = step_emits_dense(k, D, shard_hash, interpret,
-                                force_second_round)
-    if use_tree:
-        from zotpu.kernels.sort_pallas import TILE_E
-        cap = -(-cap // TILE_E) * TILE_E
-        if cap2:
-            cap2 = -(-cap2 // TILE_E) * TILE_E
-    # the tree's final pass fuses a DENSE dedup-compact epilogue (round 3);
-    # its output carries append-slack rows beyond the input length
-    fuse_dedup = use_tree and not _bench_no_dedup
-    if fuse_dedup:
-        from zotpu.kernels.dedup_pallas import dedup_out_cap
-        cap_out = dedup_out_cap(D * (cap + cap2))
-    else:
-        cap_out = D * (cap + cap2)
+    cap_out = D * (cap + cap2)
 
     if wire and read_len % 32:
         raise ValueError(f"wire form needs 32 | read_len, got {read_len}")
@@ -474,77 +282,21 @@ def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
         if shard_hash == "mixed" and p_bits > 0:
             # sentinels route to the last shard, weightless (as in prefix)
             hi, lo, owner, _, _ = _mixed_owner_sort(hi, lo, k, p_bits, D)
-            (rhi, rlo), overflow, need2, landed = _route(
-                hi, lo, k, D, cap, capacity2=cap2, owner=owner,
-                reverse_odd=use_tree)
+            (rhi, rlo), overflow, _, landed = _route(
+                hi, lo, k, D, cap, capacity2=cap2, owner=owner)
             rhi = _strip_owner(rhi, rlo, k, p_bits)
         else:
             hi, lo = jax.lax.sort((hi, lo), num_keys=2)
-            (rhi, rlo), overflow, need2, landed = _route(
-                hi, lo, k, D, cap, capacity2=cap2, reverse_odd=use_tree)
+            (rhi, rlo), overflow, _, landed = _route(
+                hi, lo, k, D, cap, capacity2=cap2)
         # per-shard received volume from the senders' O(D) landed counts --
         # the old full compare+sum over the received buffer is off the step
         routed = jax.lax.psum(landed, AXIS)[jax.lax.axis_index(AXIS)]
-        # The tree's final pass fuses the DENSE dedup-compact epilogue
-        # (round 3): the merged array never round-trips HBM for a separate
-        # XLA dedup pass, and the dense run lets every accumulator LSM
-        # level use the streaming fused merge kernel instead of a re-sort.
-        done = False
-        if D == 1 and cap2 == 0:
-            pass         # one bucket run = the sender's sorted array, as-is
-        elif use_tree and cap2 == 0:
-            if fuse_dedup:
-                uhi, ulo, counts, n = merge_received_runs(
-                    rhi, rlo, D, cap, 0, dedup=True, interpret=interpret)
-                done = True
-            else:
-                rhi, rlo = merge_received_runs(rhi, rlo, D, cap, 0,
-                                               interpret=interpret)
-        elif use_tree:
-            # round-2 half gated on the same replicated flag as its fill:
-            # when nothing overflowed the tail is all sentinel (= max key),
-            # so first-round-merged || sentinel-tail is already sorted
-            if fuse_dedup:
-                def tree_full(_):
-                    return merge_received_runs(rhi, rlo, D, cap, cap2,
-                                               dedup=True,
-                                               interpret=interpret)
-
-                def tree_first(_):
-                    u1, l1, c1, n1 = merge_received_runs(
-                        rhi[:D * cap], rlo[:D * cap], D, cap, 0, dedup=True,
-                        interpret=interpret)
-                    # dense + sentinel tail is still dense; lengths match
-                    # tree_full's (the append slack is a constant)
-                    sent_t = jnp.full(D * cap2, SENT32, jnp.uint32)
-                    return (jnp.concatenate([u1, sent_t]),
-                            jnp.concatenate([l1, sent_t]),
-                            jnp.concatenate(
-                                [c1, jnp.zeros(D * cap2, jnp.uint32)]), n1)
-
-                uhi, ulo, counts, n = jax.lax.cond(need2, tree_full,
-                                                   tree_first, operand=None)
-                done = True
-            else:
-                def tree_full(_):
-                    return merge_received_runs(rhi, rlo, D, cap, cap2,
-                                               interpret=interpret)
-
-                def tree_first(_):
-                    h1, l1 = merge_received_runs(rhi[:D * cap],
-                                                 rlo[:D * cap], D, cap, 0,
-                                                 interpret=interpret)
-                    return (jnp.concatenate([h1, rhi[D * cap:]]),
-                            jnp.concatenate([l1, rlo[D * cap:]]))
-
-                rhi, rlo = jax.lax.cond(need2, tree_full, tree_first,
-                                        operand=None)
-        else:
+        if D > 1 or cap2:
+            # the received buffer is several bucket runs; at D=1 with no
+            # second round it is the sender's sorted array, as-is
             rhi, rlo = jax.lax.sort((rhi, rlo), num_keys=2)
-        if done:
-            pass                      # dense (uhi, ulo, counts, n) from the
-            #                           tree's fused dedup-compact pass
-        elif _bench_no_dedup:
+        if _bench_no_dedup:
             valid_r = ~((rhi == SENT32) & (rlo == SENT32))
             uhi, ulo = rhi, rlo
             counts = valid_r.astype(jnp.uint32)
@@ -566,9 +318,8 @@ def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
         local_step = body
         in_specs = (P(AXIS, None), P(AXIS))
 
-    # check_vma=False: the Pallas pack kernel's out_shape has no varying-
-    # mesh-axes annotation, which the checker rejects on TPU (collectives
-    # here are explicit and covered by the byte-equality tests).
+    # check_vma=False: the collectives here are explicit and covered by the
+    # byte-equality tests.
     fn = shard_map(
         local_step, mesh=mesh,
         in_specs=in_specs,
@@ -583,8 +334,8 @@ def hosts_prefix_ordered(mesh) -> bool:
     """True when every host's devices are contiguous in the mesh AND host
     ranges ascend with process index -- the layout gather_local_rows /
     allgather_host_sets rely on to concatenate prefix-sharded results
-    already sorted (ADVICE round 3: on an interleaved mesh the concatenation
-    is silently unsorted; callers must pass reorder=True instead)."""
+    already sorted (on an interleaved mesh the concatenation is silently
+    unsorted; callers must pass reorder=True instead)."""
     flat = list(mesh.devices.flat)
     seen: dict[int, list[int]] = {}
     for i, d in enumerate(flat):
@@ -686,8 +437,7 @@ def gather_global(uhi, ulo, counts, n_unique, reorder: bool = False):
 
 def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
                        panel_cap: int, capacity_factor: float = 2.0,
-                       wire: bool = False, shard_hash: str = "prefix",
-                       interpret: bool = False):
+                       wire: bool = False, shard_hash: str = "prefix"):
     """Multi-chip panel pulldown (BASELINE config 5).
 
     ``wire=True``: input reads arrive in the 0.375 B/base wire form
@@ -701,7 +451,7 @@ def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
     (sentinel-padded to panel_cap; partition_panel must be called with the
     SAME shard_hash). Read k-mers are routed to their owner shard carrying
     their global READ-ROW id; each
-    shard probes its panel range via the two-word binary search and the
+    shard probes its panel range with a sort-merge join and the
     per-row hit counts are psum'd across shards -- so the sharded scan yields
     the same per-read output surface as the single-chip path (per-sample
     totals, reads_with_hits, per-read rows, pulldown FASTQ all derive from
@@ -711,9 +461,7 @@ def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
     (D, panel_cap). Output: row_hits (D*R,) int32 (replicated across the
     mesh), overflow (D,).
     """
-    from zotpu.kernels.join import (_join_pallas_star, _join_xla,
-                                    _rowsum_by_key, _rowsum_from_hit_tags,
-                                    _transform_keys)
+    from zotpu.kernels.join import _join_xla
 
     S.check_k(k)
     if shard_hash not in ("prefix", "mixed"):
@@ -728,25 +476,6 @@ def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
     if R_total >= 1 << 30:
         raise ValueError(f"{R_total} rows exceed the 2^30 row*2+hit key "
                          f"budget; split the batch")
-    # Streaming join path (round 5): the routed probes arrive as D
-    # key-sorted runs (prefix sharding, or mixed with the owner EMBEDDED
-    # then stripped), so a payload merge tree (log2 D streaming passes,
-    # read-row ids riding as a channel) + ONE merge-path join against the
-    # shard's sorted panel replaces the 3-key full re-sort of
-    # panel+probes that dominated the round-4 sharded scan (~160 ms of
-    # the ~530 ms step at 30M probes on v5e, docs/PERF_NOTES.md round 5).
-    # Same gating rules as make_kmerize_step's tree; interpret=True
-    # forces it on CPU for tests.
-    from zotpu.kernels.dispatch import use_pallas
-    tree_order_ok = (shard_hash == "prefix"
-                     or _embed_bits(k, p_bits) is not None)
-    use_stream = (tree_order_ok and (D & (D - 1)) == 0
-                  and (use_pallas() or interpret))
-    if use_stream:
-        from zotpu.kernels.sort_pallas import TILE_E
-        cap = -(-cap // TILE_E) * TILE_E
-        if cap2:
-            cap2 = -(-cap2 // TILE_E) * TILE_E
 
     def body(codes, lengths, phi, plo):
         phi, plo = phi[0], plo[0]
@@ -767,45 +496,20 @@ def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
             hi, lo, rid = jax.lax.sort((hi, lo, rid), num_keys=2)
             (rhi, rlo, rrid), overflow, _need2, _landed = _route(
                 hi, lo, k, D, cap, payload=(rid,), capacity2=cap2)
-        if use_stream:
-            # payload merge tree over the D received runs, then the same
-            # key*-transformed streaming merge join the single-chip scan
-            # uses (kernels/join): hit bit + sparse hit-tag compaction in
-            # the kernel epilogue. Received sentinel rows are bucket
-            # padding (tag 0, never a hit); the truncation fallback is the
-            # GENERIC bkey rowsum -- the dense reshape variant needs every
-            # row id exactly m_per_row times, false for routed streams.
-            from zotpu.kernels.sort_pallas import HIT_CAP
-            qhi, qlo, qtag = merge_received_runs_tag(
-                rhi, rlo, rrid, D, cap, cap2, interpret=interpret)
-            phi_s, plo_s = _transform_keys(phi, plo, is_probe=False)
-            qhi_s, qlo_s = _transform_keys(qhi, qlo, is_probe=True)
-            bkey, hit_tags, tile_hits = _join_pallas_star(
-                phi_s, plo_s, qhi_s, qlo_s, qtag, R_total,
-                interpret=interpret)
-            truncated = jnp.any(tile_hits > jnp.int32(HIT_CAP))
-            hits = jax.lax.cond(
-                truncated,
-                lambda _: _rowsum_by_key(bkey, R_total),
-                lambda _: _rowsum_from_hit_tags(hit_tags, R_total),
-                operand=None)
-        else:
-            # portable XLA path: concat + 3-key sort, tags are rid+1
-            # (0 = panel row)
-            hit, tag = _join_xla(phi, plo, rhi, rlo, rrid + jnp.uint32(1))
-            cond = hit & (tag > 0)
-            # Per-read aggregation WITHOUT scatter (repo rule: XLA scatter
-            # runs at 0.03-0.13 Gelem/s on this core): sort the hit row
-            # ids (misses sink to the R_total bin) and take per-row
-            # occupancy from searchsorted bin edges. u16 keys when they
-            # fit (0.33 vs 0.28 Gkeys/s, kernels/join.py).
-            dt = jnp.uint16 if R_total + 1 < (1 << 16) else jnp.int32
-            t = jnp.where(cond, tag - jnp.uint32(1),
-                          jnp.uint32(R_total)).astype(dt)
-            (t,) = jax.lax.sort((t,), num_keys=1)
-            bins = jnp.arange(R_total + 1, dtype=dt)
-            edges = jnp.searchsorted(t, bins, side="left").astype(jnp.int32)
-            hits = jnp.diff(edges)
+        # concat + 3-key sort against the shard's panel, tags are rid+1
+        # (0 = panel row)
+        hit, tag = _join_xla(phi, plo, rhi, rlo, rrid + jnp.uint32(1))
+        cond = hit & (tag > 0)
+        # Per-read aggregation without scatter: sort the hit row ids
+        # (misses sink to the R_total bin) and take per-row occupancy from
+        # searchsorted bin edges; u16 keys when they fit.
+        dt = jnp.uint16 if R_total + 1 < (1 << 16) else jnp.int32
+        t = jnp.where(cond, tag - jnp.uint32(1),
+                      jnp.uint32(R_total)).astype(dt)
+        (t,) = jax.lax.sort((t,), num_keys=1)
+        bins = jnp.arange(R_total + 1, dtype=dt)
+        edges = jnp.searchsorted(t, bins, side="left").astype(jnp.int32)
+        hits = jnp.diff(edges)
         hits = jax.lax.psum(hits, AXIS)
         return hits[None], overflow[None]
 

@@ -4,7 +4,7 @@ Reference analog: zotmer/library/file.py ``openFile``/``readFasta``/``readFastq`
 (streaming generators over gzip-transparent files; unverified, reference mount
 empty -- SURVEY.md section 0).
 
-TPU-first difference: besides the per-record generators, this module provides
+Device-first difference: besides the per-record generators, this module provides
 **batched** parsing straight into fixed-shape ``(R, L)`` u8 code matrices --
 the host-side half of the kmerize pipeline. Parsing is numpy-vectorized
 (newline scans via ``np.where`` on the raw byte buffer, LUT encode) so the host

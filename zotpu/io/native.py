@@ -1,15 +1,20 @@
 """ctypes bridge to the native C++ FASTQ parser (zotpu/native/).
 
 Builds ``libzotpu_native.so`` with g++ on first use (cached next to the
-source); every entry point has a numpy fallback (io/fastq.py), so the
-framework works -- just slower on the host side -- if no compiler exists.
+source, keyed on the source hash, the machine and the compiler version);
+every entry point has a numpy fallback (io/fastq.py), so the framework works
+-- just slower on the host side -- if no compiler exists. A fallback is
+reported once on stderr, with its cause; ``load_error()`` returns it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -20,49 +25,60 @@ _SO = os.path.join(_NATIVE_DIR, "libzotpu_native.so")
 _HASH = _SO + ".srchash"
 _lock = threading.Lock()
 _lib = None
-_lib_failed = False
+_error: str | None = None
 
 
-def _src_hash() -> str:
-    import hashlib
+def build_key(src: bytes, machine: str, compiler: str) -> str:
+    """Identity of a built library: a binary is reused only when the source,
+    the machine architecture and the compiler version all match (a copy of
+    the checkout carried to another host brings a foreign .so with it)."""
+    h = hashlib.sha256(src)
+    h.update(b"\0" + machine.encode() + b"\0" + compiler.encode())
+    return h.hexdigest()
+
+
+def _compiler_version() -> str:
+    out = subprocess.run(["g++", "--version"], check=True,
+                         capture_output=True, text=True).stdout
+    return out.splitlines()[0] if out else ""
+
+
+def _build() -> None:
+    """(Re)build the .so unless one with the same build key exists. Raises
+    on failure (missing compiler, compile error)."""
     with open(_SRC, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
-
-
-def _build() -> bool:
-    """(Re)build the .so, keyed on a source-content hash (a stale or
-    foreign-machine binary -- e.g. restored from a cache or a git clone --
-    must never be trusted on mtime alone)."""
+        want = build_key(f.read(), platform.machine(), _compiler_version())
+    if os.path.exists(_SO) and os.path.exists(_HASH):
+        with open(_HASH) as f:
+            if f.read().strip() == want:
+                return
+    # Portable flags only: -march=native output SIGILLs on older hosts.
+    # Build to a private name and rename, so a concurrent loader never
+    # sees a half-written library.
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
-        want = _src_hash()
-        if os.path.exists(_SO) and os.path.exists(_HASH):
-            with open(_HASH) as f:
-                if f.read().strip() == want:
-                    return True
-        # Portable flags only: -march=native output SIGILLs on older hosts.
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
-            check=True, capture_output=True)
-        with open(_HASH, "w") as f:
-            f.write(want)
-        return True
-    except (subprocess.CalledProcessError, FileNotFoundError, OSError):
-        return False
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
+                       check=True, capture_output=True)
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    with open(_HASH, "w") as f:
+        f.write(want)
 
 
 def get_lib():
     """Load (building if needed) the native library, or None on failure.
 
-    Every failure mode -- missing compiler, failed dlopen, missing symbols --
-    degrades to the numpy fallback instead of raising (ADVICE round 1)."""
-    global _lib, _lib_failed
+    Every failure mode -- missing compiler, failed build or dlopen, missing
+    symbols -- degrades to the numpy fallback instead of raising, and is
+    reported once on stderr."""
+    global _lib, _error
     with _lock:
-        if _lib is not None or _lib_failed:
+        if _lib is not None or _error is not None:
             return _lib
-        if not _build():
-            _lib_failed = True
-            return None
         try:
+            _build()
             lib = ctypes.CDLL(_SO)
             lib.zotpu_parse_fastq.restype = ctypes.c_int64
             lib.zotpu_parse_fastq.argtypes = [
@@ -76,11 +92,22 @@ def get_lib():
             lib.zotpu_pack_wire.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                             ctypes.c_int64,
                                             ctypes.c_void_p, ctypes.c_void_p]
-        except (OSError, AttributeError):
-            _lib_failed = True
+        except (subprocess.CalledProcessError, OSError, AttributeError) as e:
+            detail = getattr(e, "stderr", None)
+            _error = f"{type(e).__name__}: {e}" + (
+                f" ({detail.decode(errors='replace').strip()[:500]})"
+                if isinstance(detail, bytes) and detail else "")
+            print(f"zotpu: native FASTQ parser unavailable, using the numpy "
+                  f"path: {_error}", file=sys.stderr)
             return None
         _lib = lib
         return _lib
+
+
+def load_error() -> str | None:
+    """Why the native library failed to load (None if it loaded or was
+    never requested)."""
+    return _error
 
 
 def parse_fastq_buffer(buf: bytes | np.ndarray, max_reads: int, max_len: int,

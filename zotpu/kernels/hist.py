@@ -4,10 +4,7 @@ Reference analog: zotmer/commands/hist.py count-of-counts loop
 (SURVEY.md section 3.4). The tail accumulates in the last bin; on a mesh
 the per-shard histograms are psum'd.
 
-Round 2.2: the round-1 kernel was ONE scatter-add over the counts array --
-XLA:TPU lowers scatter to ~0.13 Gelem/s (docs/PERF_NOTES.md), the exact
-primitive this codebase's tenets forbid on hot paths. Count-of-counts over
-a BOUNDED bin range sorts instead: clamp counts to max_count (u16 when it
+Count-of-counts over a BOUNDED bin range sorts instead of scattering: clamp counts to max_count (u16 when it
 fits -- narrow keys sort ~1.2x faster), ONE keys-only lax.sort, then the
 histogram is the difference of bin boundaries found by searchsorted
 (max_count+1 needles, ~log2(n) steps each -- thousands of gathers, not

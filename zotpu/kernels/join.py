@@ -1,29 +1,21 @@
 """Sort-merge membership join: packed query k-mers vs a sorted panel.
 
 Reference analog: zotmer's scan binary-searches each k-mer in the panel
-(SURVEY.md section 3.5). The round-1 device translation
-(``kernels/search.member2``) kept that shape -- ~log2(n) panel GATHERS per
-query -- but XLA:TPU lowers gather to ~0.03 Gelem/s (docs/PERF_NOTES.md), so
-scan measured ~2 Mkmer/s. TPU has no vector-gather unit; the gather-free
-formulation is a SORT-MERGE JOIN. Round-2 restructure (the round-2.0 shape
-paid FOUR full-width lax.sorts per batch; profiled 53 Mkmer/s):
+(SURVEY.md section 3.5). The device form is a gather-free SORT-MERGE JOIN:
 
 1. transform keys to key* = key*2 + is_probe (51 bits still fit the
    (hi, lo) u32 pair since hi < 2^31): the tie-break rides INSIDE the key,
-   so even an unstable bitonic merge lands the panel row FIRST in its
-   equal-key segment -- no bidirectional segment scans needed;
-2. sort queries by key*, carrying the probe's ROW id as payload;
-3. ONE streaming merge pass against the sorted (transformed) panel;
-4. hit bits via two cummax scans (previous-panel-position vs segment
-   start);
-5. per-row counts: ONE keys-only sort of ``row*2 + hit`` groups each
-   row's m_per_row entries contiguously in row order (panel/pad rows
-   carry row = n_rows and sink to the tail), then a reshape row-sum --
-   replacing the round-2.0 tag-sort + flag-sort-compaction pair of
-   full-width sorts; u16 keys when n_rows allows.
+   so a 2-key sort lands the panel row FIRST in its equal-key segment --
+   no bidirectional segment scans needed;
+2. concatenate panel and queries (queries carry their ROW id as payload)
+   and sort by key*;
+3. hit bits via one cummax scan (segment start is a panel row);
+4. per-row counts: ONE keys-only sort of ``row*2 + hit`` groups each
+   row's m_per_row entries contiguously in row order (panel rows carry
+   row = n_rows and sink to the tail), then a reshape row-sum; u16 keys
+   when n_rows allows.
 
-Everything is sorts, scans, and one Pallas merge pass -- the primitives this
-codebase already runs at full VPU rate.
+Everything is sorts and scans.
 """
 
 from __future__ import annotations
@@ -72,31 +64,14 @@ def _hits_from_merged_star(hi_s, lo_s, tag, tag_pad: int):
     return hit, bkey
 
 
-@functools.partial(jax.jit, static_argnames=("n_rows",))
-def _rowsum_from_hit_tags(hit_tags, n_rows: int):
-    """Per-row hit counts from the kernel's COMPACTED hit tags (sparse-hit
-    path): hit_tags holds each hit probe's row id plus n_rows-valued
-    padding. Sort the (narrow) tags and take per-row occupancy from
-    searchsorted bin edges -- the same scatter-free count-of pattern as
-    kernels/hist.spectrum; cost scales with the hit CAPACITY
-    (n / sort_pallas.HIT_RATIO), not the probe count."""
-    dt = jnp.uint16 if n_rows + 1 < (1 << 16) else jnp.int32
-    t = jnp.minimum(hit_tags, jnp.uint32(n_rows)).astype(dt)
-    (t,) = jax.lax.sort((t,), num_keys=1)
-    bins = jnp.arange(n_rows + 1, dtype=dt)
-    edges = jnp.searchsorted(t, bins, side="left").astype(jnp.int32)
-    return jnp.diff(edges)
-
-
 @functools.partial(jax.jit, static_argnames=("n_rows", "m_per_row"))
 def _rowsum_by_idx(bkey, n_rows: int, m_per_row: int):
     """One keys-only sort of row*2+hit: each probe row id appears exactly
     m_per_row times (once per window), so after the sort row r's entries
     occupy [r*m_per_row, (r+1)*m_per_row) with the hit bit in the LSB;
     panel/pad rows (tag == n_rows) sink to the tail. Then a reshape
-    row-sum. Row-granularity tags (round 2.2, replacing probe-idx tags)
-    keep the same reshape trick but fit u16 for n_rows <= 32766 -- a u16
-    keys-only lax.sort runs 0.331 vs u32's 0.279 Gkeys/s on TPU v5e."""
+    row-sum. Row-granularity tags fit u16 for n_rows <= 32766, which
+    halves the bytes the sort moves."""
     m = n_rows * m_per_row
     if 2 * n_rows + 1 < (1 << 16):
         bkey = bkey.astype(jnp.uint16)
@@ -105,30 +80,12 @@ def _rowsum_by_idx(bkey, n_rows: int, m_per_row: int):
     return hits.reshape(n_rows, m_per_row).sum(axis=1, dtype=jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("n_rows",))
-def _rowsum_by_key(bkey, n_rows: int):
-    """GENERIC per-row hit counts from bkey = min(tag, n_rows)*2 + hit:
-    one keys-only sort, then each row's hits are the span between the
-    searchsorted edges of row*2+1 and row*2+2. The dense _rowsum_by_idx
-    reshape needs every row id to appear exactly m_per_row times -- FALSE
-    for route-scattered probe streams (the sharded pulldown), whose
-    per-shard row populations are arbitrary. Used as that path's
-    hit-tag-truncation fallback; cost = one u32 sort of the probe
-    capacity."""
-    (s,) = jax.lax.sort((bkey,), num_keys=1)
-    bins = jnp.arange(n_rows, dtype=jnp.uint32)
-    left = jnp.searchsorted(s, bins * 2 + jnp.uint32(1), side="left")
-    right = jnp.searchsorted(s, bins * 2 + jnp.uint32(2), side="left")
-    return (right - left).astype(jnp.int32)
-
-
 def _hits_from_merged(hi, lo, tag):
     """Post-merge: per-row hit bits (TAG-contract path, used by the sharded
     pulldown in dist/shuffle.py). Rows sorted by (hi, lo); tag==0 marks
     panel rows, tag>0 query rows. A query hits iff its equal-key segment
-    CONTAINS a panel row -- checked in both directions because bitonic merge
-    networks are NOT stable, so a tie's panel row may land anywhere in the
-    segment. All scans, no gather/scatter."""
+    CONTAINS a panel row -- checked in both directions, so the rule holds
+    for any tie order within a segment. All scans, no gather/scatter."""
     n = hi.shape[0]
     neq = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
     first = jnp.concatenate([jnp.ones((1,), bool), neq])
@@ -145,70 +102,10 @@ def _hits_from_merged(hi, lo, tag):
     return (tag > 0) & in_segment & valid
 
 
-@functools.partial(jax.jit, static_argnames=("n_tag", "interpret"))
-def _join_pallas_star(phi_s, plo_s, qhi_s, qlo_s, tag, n_tag: int,
-                      interpret: bool = False):
-    """TPU path: one streaming bitonic-merge pass over the key*-transformed
-    [panel | queries] (no cross-side ties by construction) with the hit bit
-    computed in the kernel epilogue (sort_pallas.stream_join_pair_pallas) --
-    no separate XLA hit-scan pass and one output channel instead of three.
-    Inputs already transformed; queries sorted by key* with a ROW-id tag
-    payload (pads carry n_tag = n_rows). Returns bkey (see
-    _hits_from_merged_star, the XLA formulation of the same rule).
-
-    The merge comparator is 3-key (key*, tag): sentinel-KEY probe rows
-    (invalid pack windows) carry meaningful tags, and with a 2-key network
-    they tie with sentinel-masked window slack -- the network may emit a
-    slack row in their place, duplicating one tag and losing another
-    (observed: 40% sentinel probes at 3 tiles corrupted 40% of idx
-    coverage when tags were probe indices). Both sides are
-    (key*, tag)-sorted: the panel's tag is constant and the probe fwd sort
-    is lax.sort's default STABLE sort over non-decreasing row ids. Rows
-    with identical (key*, tag) triples may still tie, but identical rows
-    produce identical bkey, so any resolution is byte-equal.
-
-    Returns the stream_join_pair_pallas triple (bkey, hit_tags, tile_hits).
-
-    Sides pad to TILE_E multiples, not powers of two (the merge-path
-    partition handles any tile-aligned sizes): a 1.15M-key panel merges
-    1.16M panel elements instead of 2M.
-
-    Batch segmentation was tried and REJECTED (round 2.6 A/B, TPU v5e,
-    30.4M probes): cutting the probe batch into S row blocks with
-    per-segment batched sorts + per-segment merges against the shared
-    panel measured SLOWER at every feasible S -- the batched 3-operand
-    stable lax.sort does not get the short-row discount the 2-operand
-    keys-only micro showed (flat 139 ms; (14, 2.2M) 161 ms; (4, 7.6M)
-    193 ms; a (1, n) batched layout is catastrophic at 873 ms) and every
-    segment re-merges the full panel. The flat sort + one merge is the
-    floor."""
-    from zotpu.kernels.sort_pallas import TILE_E, stream_join_pair_pallas
-
-    def _round_tile(n):
-        return max(-(-n // TILE_E) * TILE_E, TILE_E)
-
-    MA = _round_tile(phi_s.shape[0])
-    MB = _round_tile(qhi_s.shape[0])
-
-    def pad(x, M, fill):
-        return jnp.concatenate([x, jnp.full(M - x.shape[0], fill,
-                                            jnp.uint32)])
-
-    # pads keep each side sorted: hi* = SENT32 > any valid hi* (< 2^31);
-    # panel pads keep the panel side bit (lo* even), probe pads tag=n_tag
-    hi = jnp.concatenate([pad(phi_s, MA, SENT32), pad(qhi_s, MB, SENT32)])
-    lo = jnp.concatenate([pad(plo_s, MA, 0xFFFFFFFE),
-                          pad(qlo_s, MB, SENT32)])
-    tags = jnp.concatenate([jnp.full(MA, n_tag, jnp.uint32),
-                            pad(tag, MB, n_tag)])
-    return stream_join_pair_pallas(hi, lo, tags, nA=MA, n_tag=n_tag,
-                                   interpret=interpret)
-
-
 @functools.partial(jax.jit, static_argnames=("n_tag",))
 def _join_xla_star(phi_s, plo_s, qhi_s, qlo_s, tag, n_tag: int):
-    """Portable path: concat + 2-key lax.sort of the key*-transformed rows
-    (the side bit lives in the key, so no third sort channel is needed)."""
+    """Concat + 2-key lax.sort of the key*-transformed rows (the side bit
+    lives in the key, so no third sort channel is needed)."""
     hi = jnp.concatenate([phi_s, qhi_s])
     lo = jnp.concatenate([plo_s, qlo_s])
     tags = jnp.concatenate([jnp.full(phi_s.shape[0], n_tag, jnp.uint32),
@@ -220,8 +117,8 @@ def _join_xla_star(phi_s, plo_s, qhi_s, qlo_s, tag, n_tag: int):
 
 @jax.jit
 def _join_xla(phi, plo, qhi, qlo, qtag):
-    """Portable path: concat + lax.sort with panel-first tie order (panel
-    tag 0 < query tags; 3-key sort makes ties deterministic)."""
+    """Concat + lax.sort with panel-first tie order (panel tag 0 < query
+    tags; 3-key sort makes ties deterministic)."""
     hi = jnp.concatenate([phi, qhi])
     lo = jnp.concatenate([plo, qlo])
     tag = jnp.concatenate([jnp.zeros(phi.shape[0], jnp.uint32),
@@ -236,8 +133,6 @@ def row_hits_sorted_join(phi, plo, qhi, qlo, n_rows: int, m_per_row: int):
     phi/plo: DENSE sorted unique sentinel-padded panel. qhi/qlo: pack output
     in window order (n_rows * m_per_row,). Returns (n_rows,) int32.
     """
-    from zotpu.kernels.dispatch import use_pallas
-
     m = qhi.shape[0]
     if n_rows * m_per_row != m:
         raise ValueError(f"query length {m} != {n_rows} x {m_per_row}")
@@ -250,26 +145,5 @@ def row_hits_sorted_join(phi, plo, qhi, qlo, n_rows: int, m_per_row: int):
     # the output is per-row counts -- and row-granularity bkeys fit u16
     # for typical batch sizes, a cheaper backward sort)
     tag = jnp.repeat(jnp.arange(n_rows, dtype=jnp.uint32), m_per_row)
-    if use_pallas() and m >= (1 << 15):
-        # pre-sort queries (the dominant cost), then ONE streaming merge.
-        # STABILITY is load-bearing: _join_pallas_star's 3-key network needs
-        # the probe side sorted by (key*, tag), which the stable sort of
-        # non-decreasing row ids provides for free.
-        qhi_s, qlo_s, tag = jax.lax.sort((qhi_s, qlo_s, tag), num_keys=2,
-                                         is_stable=True)
-        bkey, hit_tags, tile_hits = _join_pallas_star(
-            phi_s, plo_s, qhi_s, qlo_s, tag, n_rows)
-        # sparse-hit fast path: every tile's hits fit its packed block, so
-        # per-read aggregation sorts the small hit-tag array; otherwise the
-        # dense fallback backward-sorts all bkeys. Both branches are traced,
-        # one runs (single-device cond; the common pulldown case -- a small
-        # panel screened against many reads -- is sparse).
-        from zotpu.kernels.sort_pallas import HIT_CAP
-        truncated = jnp.any(tile_hits > jnp.int32(HIT_CAP))
-        return jax.lax.cond(
-            truncated,
-            lambda _: _rowsum_by_idx(bkey, n_rows, m_per_row),
-            lambda _: _rowsum_from_hit_tags(hit_tags, n_rows),
-            operand=None)
     bkey = _join_xla_star(phi_s, plo_s, qhi_s, qlo_s, tag, n_rows)
     return _rowsum_by_idx(bkey, n_rows, m_per_row)

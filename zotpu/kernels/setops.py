@@ -1,7 +1,7 @@
 """Vectorized sorted-set algebra on device.
 
 Reference analog: zotmer's two-pointer merge / set-op sweeps
-(SURVEY.md sections 3.2-3.3). TPU-native shape: concatenate the two sorted
+(SURVEY.md sections 3.2-3.3). Device shape: concatenate the two sorted
 unique inputs with per-side count tags, ``lax.sort``, then combine neighbours
 -- because both inputs are unique, every key segment has at most 2 members, so
 the combine is a single shifted compare instead of a scan. Outputs are
@@ -52,8 +52,8 @@ def _combine_sorted(hi, lo, ca, cb, op: str):
 
 
 def _compact_kept(hi, lo, cnt, keep_first):
-    """Scatter-free compaction (see kernels/sortdedup.py TPU note): stable
-    sort on the keep flag moves kept rows to the front preserving key order."""
+    """Scatter-free compaction: a stable sort on the keep flag moves kept
+    rows to the front preserving key order."""
     flag = (~keep_first).astype(jnp.uint32)
     flag, out_hi, out_lo, out_c = jax.lax.sort((flag, hi, lo, cnt), num_keys=1,
                                                is_stable=True)
@@ -74,9 +74,6 @@ def set_op(hi_a, lo_a, c_a, hi_b, lo_b, c_b, op: str = "merge"):
     Inputs use sentinel-key padding; rows may also be sentinel-MARKED
     (uncompacted) -- this path re-sorts the concatenation, so row order is
     irrelevant. Returns (hi, lo, counts, n_out) with capacity len(A)+len(B).
-    For large DENSE sorted inputs on TPU, kernels/setops_merge.py provides
-    the merge-path front-end that replaces the full re-sort with a streaming
-    Pallas bitonic-merge pass (~log n fewer compare-exchanges).
     """
     ca = jnp.concatenate([c_a.astype(jnp.uint32), jnp.zeros_like(c_b, jnp.uint32)])
     cb = jnp.concatenate([jnp.zeros_like(c_a, jnp.uint32), c_b.astype(jnp.uint32)])

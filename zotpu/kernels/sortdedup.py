@@ -1,9 +1,8 @@
 """Sort + dedup + count aggregation on device.
 
 Reference analog: zotmer kmerize's in-RAM ``buffer.sort(); dedup -> (kmer,
-count)`` step (SURVEY.md section 3.1). TPU-native shape: ``lax.sort`` over the
-(hi, lo) u32 key pair (XLA's sort is a good fit for the VPU), then
-segment-extent counting -- for the kmerize path all weights are 0/1 and invalid
+count)`` step (SURVEY.md section 3.1). Device shape: ``lax.sort`` over the
+(hi, lo) u32 key pair, then segment-extent counting -- for the kmerize path all weights are 0/1 and invalid
 entries carry the sentinel key, so a segment's count is simply its extent
 (last_pos - first_pos + 1). No scan, no scatter-add contention.
 
@@ -51,10 +50,8 @@ def dedup_mark_sorted(hi, lo):
     key sort itself, ~1/3 of the round-1 step) OFF the hot path; call
     ``compact_sorted`` only where a dense ``[:n]`` prefix is required.
 
-    TPU note: scans only, NO scatter/gather -- XLA:TPU lowers dynamic
-    scatter/gather to near-serial loops (measured ~0.03 Gelem/s vs
-    ~1 Gelem/s for cumsum; bench/micro.py), so segment counts come from a
-    reverse-cummin of next-boundary positions.
+    Segment counts come from a reverse-cummin of next-boundary positions:
+    scans only, no scatter or gather.
     """
     n = hi.shape[0]
     first, _ = _boundaries(hi, lo)
@@ -102,36 +99,15 @@ def dedup_count_sorted(hi, lo):
     return uhi, ulo, cnt, n_unique
 
 
-def kmer_dedup_dense() -> bool:
-    """True when kmer_sort_dedup emits DENSE unique runs (the Pallas
-    dedup-compact pass on TPU) rather than XLA marked/compacted forms --
-    the device accumulator then uses the streaming fused merge at every
-    LSM level (round 3)."""
-    from zotpu.kernels.dispatch import use_pallas
-    return use_pallas()
-
-
 @functools.partial(jax.jit, static_argnames=("compact",))
 def kmer_sort_dedup(hi, lo, w, compact: bool = True):
     """Full single-chip sort+dedup: pack output -> sorted unique keys+counts.
 
-    On TPU (kmer_dedup_dense) the dedup is ONE streaming Pallas pass
-    emitting the DENSE (uhi, ulo, counts, n) form for both compact modes
-    (kernels/dedup_pallas.dedup_compact_pallas; output carries append-slack
-    capacity beyond the input length). On CPU, compact=False returns the
-    sentinel-marked (uncompacted) XLA form for consumers that re-sort (the
-    device accumulator), compact=True the mark+stable-compaction form."""
+    compact=False returns the sentinel-marked (uncompacted) form for
+    consumers that re-sort (the device accumulator), compact=True the
+    mark+stable-compaction form."""
     del w  # validity is already encoded as the sentinel key
     hi, lo = jax.lax.sort((hi, lo), num_keys=2)
-    if kmer_dedup_dense():
-        from zotpu.kernels.dedup_pallas import dedup_compact_pallas
-        from zotpu.kernels.sort_pallas import TILE_E
-        n = hi.shape[0]
-        pad = -n % TILE_E
-        if pad:
-            hi = jnp.concatenate([hi, jnp.full(pad, SENT32, jnp.uint32)])
-            lo = jnp.concatenate([lo, jnp.full(pad, SENT32, jnp.uint32)])
-        return dedup_compact_pallas(hi, lo)
     if compact:
         return dedup_count_sorted(hi, lo)
     return dedup_mark_sorted(hi, lo)

@@ -6,10 +6,7 @@ scan/pulldown-style commands for membership queries.
 
 Host-side (numpy) interface mirroring the expected reference semantics. The
 device-side membership surface is the gather-free sort-merge join
-(kernels/join.py): a round-1 device bisection kernel was measured and deleted
--- each bisection step is an XLA gather (~0.03 Gelem/s on TPU), so the join
-wins at EVERY query count (its probe-side sort is trivial when the query set
-is small and the panel-side merge costs ~1 ms/M elements).
+(kernels/join.py), which needs no device gather per bisection step.
 """
 
 from __future__ import annotations

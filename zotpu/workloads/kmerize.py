@@ -4,7 +4,7 @@ Reference analog: zotmer/commands/kmerize.py (SURVEY.md section 3.1): stream
 reads, emit canonical k-mers, sort+dedup+count with memory-bounded batching and
 a final merge of per-batch sorted runs (external-sort structure).
 
-TPU-native shape (BASELINE config 1): the host parses fixed-shape code batches
+Device shape (BASELINE config 1): the host parses fixed-shape code batches
 (numpy-vectorized) and double-buffers them to the device; the device runs the
 fused pack->sort->dedup program per batch; per-batch sorted runs are merged in
 a tree. Per-batch runs can be spilled as ZKF files (the checkpoint/resume
@@ -22,8 +22,8 @@ import jax
 import numpy as np
 
 from zotpu import semantics as S
-from zotpu.io import container, fastq
-from zotpu.kernels import sortdedup
+from zotpu.io import container, fastq, wire
+from zotpu.kernels import pack, sortdedup
 from zotpu.reference_impl import golden as G
 
 
@@ -48,21 +48,18 @@ def _device_batch(codes, lengths, k, compact: bool = True):
     """One per-batch device step. compact=False leaves duplicates sentinel-
     marked in place (no compaction sort) -- the accumulator re-sorts during
     its merge anyway, so the hot path skips the second full-width sort.
-    jitted like its wire twin: two eager dispatches per batch cost an extra
-    remote round trip each (accumulator.py docstring)."""
-    from zotpu.kernels import dispatch
-    hi, lo, w = dispatch.pack_canonical(codes, lengths, k)
+    One jitted program per batch: one dispatch, no eager round trips."""
+    hi, lo, w = pack.pack_canonical(codes, lengths, k)
     return sortdedup.kmer_sort_dedup(hi, lo, w, compact=compact)
 
 
 @functools.partial(jax.jit, static_argnames=("k", "compact"))
 def _device_batch_wire(packed, mask, lengths, k, compact=True):
     """Per-batch step over the 0.375 B/base wire form (io/wire.py):
-    shipping packed batches cuts H2D bytes 2.67x, and on TPU the Pallas
-    pack kernel consumes the u32 wire words directly -- the u8 code array
-    (whose retile alone costs as much as the window build) never exists."""
-    from zotpu.kernels import dispatch
-    hi, lo, w = dispatch.pack_canonical_wire(packed, mask, lengths, k)
+    shipping packed batches cuts H2D bytes 2.67x; the unpack is elementwise
+    and fuses into the pack."""
+    hi, lo, w = pack.pack_canonical(wire.unpack_codes(packed, mask),
+                                    lengths, k)
     return sortdedup.kmer_sort_dedup(hi, lo, w, compact=compact)
 
 
@@ -119,7 +116,6 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
         for batch in fastq.parse_batches(path, batch_reads, max_len,
                                          halo=k - 1):
             if wire_pack:
-                from zotpu.io import wire
                 batch.wire = wire.pack_codes(batch.codes)
             yield batch
 
@@ -174,8 +170,8 @@ def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
 
     Default (no spill_dir): per-batch runs stay ON DEVICE and merge through a
     log-structured device accumulator -- only the final set is transferred
-    (per-batch host round trips dominate E2E time on remote TPUs; measured
-    2 Mbase/s with host merging vs the 130 Mbase/s device step).
+    (a per-batch host round trip would serialize the pipeline on the host
+    link).
     ``merge_capacity`` bounds the unique-key capacity of the accumulator.
 
     With ``spill_dir`` each batch's sorted run is written as a ZKF file, which
@@ -200,10 +196,7 @@ def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
         if use_acc:
             if acc is None:
                 acc = DeviceAccumulator(uhi.shape[0], max_cap=merge_capacity)
-            # dense=True on TPU (the Pallas dedup-compact pass): level-0
-            # merges then stream through the fused merge kernel (round 3)
-            from zotpu.kernels.sortdedup import kmer_dedup_dense
-            acc.add(uhi, ulo, counts, n, dense=kmer_dedup_dense())
+            acc.add(uhi, ulo, counts, n)
             return
         # spill mode transfers every batch by design (checkpoint
         # granularity); ride the same delta+u16 D2H codec as the final
@@ -356,7 +349,6 @@ def _iter_global_batches(paths, mesh, reads_per_chip, rtot, max_len, k, stats,
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from zotpu.dist.mesh import AXIS
-    from zotpu.io import wire as W
     n_local = sum(1 for d in mesh.devices.flat
                   if d.process_index == jax.process_index())
     local_rows = reads_per_chip * n_local
@@ -372,7 +364,7 @@ def _iter_global_batches(paths, mesh, reads_per_chip, rtot, max_len, k, stats,
         if batch is None:  # this host is drained; feed all-padding rows
             codes_l = np.full((local_rows, max_len), S.INVALID_CODE, np.uint8)
             lengths_l = np.zeros(local_rows, np.int32)
-            wire_l = W.pack_codes(codes_l) if wire_pack else None
+            wire_l = wire.pack_codes(codes_l) if wire_pack else None
         else:
             codes_l, lengths_l = batch.codes, batch.lengths
             wire_l = batch.wire
@@ -497,8 +489,7 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
                 acc = ShardedAccumulator(n_shards, cap_out,
                                          max_cap=merge_capacity, mesh=mesh)
             acc.add(uhi.reshape(n_shards, -1), ulo.reshape(n_shards, -1),
-                    counts.reshape(n_shards, -1), n_unique,
-                    dense=shuffle.step_emits_dense(k, n_shards, shard_hash))
+                    counts.reshape(n_shards, -1), n_unique)
             route_overflow = (overflow if route_overflow is None
                               else route_overflow + overflow)
             routed_tot = routed if routed_tot is None else routed_tot + routed

@@ -3,10 +3,10 @@
 Reference analog: zotmer/commands/scan.py (SURVEY.md section 3.5): screen reads
 against a sorted reference k-mer panel via binary search per k-mer.
 
-TPU-native shape: the panel lives on-device as a sorted sentinel-padded
-(hi, lo) pair; each read batch is packed by the fused kernel and every window
-probes the panel through the vectorized two-word binary search; hits reduce
-per read on the VPU. On a mesh the panel is sharded by the same key prefix as
+Device shape: the panel lives on-device as a sorted sentinel-padded (hi, lo)
+pair; each read batch is packed (kernels/pack) and every window probes the
+panel through a sort-merge join (kernels/join); hits reduce per read on the
+device. On a mesh the panel is sharded by the same key prefix as
 kmerize and k-mers are routed to their owner shard (dist/shuffle.py).
 """
 
@@ -19,37 +19,33 @@ import jax.numpy as jnp
 import numpy as np
 
 from zotpu import semantics as S
-from zotpu.io import fastq
-from zotpu.kernels import dispatch
+from zotpu.io import fastq, wire
+from zotpu.kernels import pack
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
 def scan_batch(codes, lengths, panel_hi, panel_lo, k: int):
     """(R, L) codes vs sorted panel -> (R,) per-read hit counts (int32).
 
-    Membership is a gather-free SORT-MERGE JOIN (kernels/join.py): the
-    round-1 binary search gathered the panel ~log n times per query, which
-    XLA:TPU lowers at ~0.03 Gelem/s (measured ~2 Mkmer/s end to end)."""
+    Membership is a gather-free SORT-MERGE JOIN (kernels/join.py)."""
     from zotpu.kernels.join import row_hits_sorted_join
 
     R, L = codes.shape
     m = L - k + 1
-    hi, lo, w = dispatch.pack_canonical(codes, lengths, k)
+    hi, lo, w = pack.pack_canonical(codes, lengths, k)
     return row_hits_sorted_join(panel_hi, panel_lo, hi, lo, R, m)
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
 def scan_batch_wire(packed, mask, lengths, panel_hi, panel_lo, k: int):
     """scan_batch over the 0.375 B/base wire form (io/wire.py): H2D bytes
-    drop 2.67x (the scan CLI is H2D-bound on tunneled rigs, like kmerize),
-    and on TPU the Pallas pack kernel consumes the u32 wire words directly
-    (no u8 code array)."""
-    from zotpu.kernels import dispatch
+    drop 2.67x; the unpack is elementwise and fuses into the pack."""
     from zotpu.kernels.join import row_hits_sorted_join
 
     R, W = packed.shape
     m = W * 16 - k + 1
-    hi, lo, w = dispatch.pack_canonical_wire(packed, mask, lengths, k)
+    hi, lo, w = pack.pack_canonical(wire.unpack_codes(packed, mask),
+                                    lengths, k)
     return row_hits_sorted_join(panel_hi, panel_lo, hi, lo, R, m)
 
 
@@ -62,7 +58,6 @@ def _iter_scan_batches(path, batch_reads, max_len, k, wire_pack):
         for batch in fastq.parse_batches(path, batch_reads, max_len,
                                          halo=k - 1):
             if wire_pack:
-                from zotpu.io import wire
                 batch.wire = wire.pack_codes(batch.codes)
             yield batch
 
@@ -219,7 +214,6 @@ def _pulldown_sharded_multihost(panel_keys, sample_paths, k, n_shards,
     from zotpu.dist import mesh as M
     from zotpu.dist import shuffle
     from zotpu.dist.mesh import AXIS
-    from zotpu.io import wire as W
 
     mesh = M.make_mesh(n_shards)
     pid, nproc = jax.process_index(), jax.process_count()
@@ -263,7 +257,7 @@ def _pulldown_sharded_multihost(panel_keys, sample_paths, k, n_shards,
             idx, batch = None, None
             codes_l = np.full((local_rows, max_len), S.INVALID_CODE, np.uint8)
             lengths_l = np.zeros(local_rows, np.int32)
-            wire_l = W.pack_codes(codes_l) if wire_pack else None
+            wire_l = wire.pack_codes(codes_l) if wire_pack else None
         else:
             idx, batch = item
             codes_l, lengths_l, wire_l = batch.codes, batch.lengths, batch.wire
